@@ -13,7 +13,11 @@ once per step attempt instead of twice.
 On a CUDA tensor the pass runs the hand-written kernels of
 cuopt_torch/csrc/row_pass.cu; on a CPU tensor it runs their plain
 PyTorch version (`row_pass_reference`). Nothing falls back: a CUDA call
-launches the kernel or raises.
+launches the kernel or raises. Up to a window width of W_ONE_PASS the
+kernel reads each slab byte from device memory once: it adds each row
+into A^T y as soon as the row's y_new is known. Wider windows take a
+body that reads the slab a second time for the transpose; the width
+alone picks the body (`kernel_config` says which).
 
 Two modes, as cuopt_tpu has two kernels:
   - "atomic" (cuopt_tpu `_kernel`): tiles add their A^T y parts into a
@@ -47,10 +51,17 @@ from cuopt_torch.sparse.ops import BlockBandOp, _segment_sum
 # bounded by it. The port's bench will refit it.
 PARTIALS_MIN_COLS = 1 << 18
 
+# Widest window the one-pass kernel body takes (W_ONE_PASS in
+# csrc/row_pass.cu); wider windows run the two-read body.
+W_ONE_PASS = 1024
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ROW_PASS_ARGS = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                   _P, _P, _P, _P]
+CONFIG_ARGS = [_I, _I, _P]  # row_pass_config(W, partials, int info[6])
+_CONFIG_KEYS = ("one_pass", "threads", "registers", "smem_bytes",
+                "local_bytes", "blocks_per_sm")
 
 
 class Kernel:
@@ -95,6 +106,23 @@ REDUCE_PARTIALS = Kernel(
     "reduce_partials", "row_pass", [_P, _P, _P, _I, _I, _P, _P],
     "cuopt_tpu/lp/pdhg_pallas.py:428")
 KERNELS = (ROW_PASS_ATOMIC, ROW_PASS_PARTIALS, REDUCE_PARTIALS)
+
+
+def kernel_config(W: int, mode: str) -> dict:
+    """What the row pass of `mode` runs at window width W on the current
+    CUDA device: its body (`variant` "one-pass" or "two-read"), threads
+    per block, registers per thread, shared memory per block, local
+    memory per thread and resident blocks per SM. Launches nothing."""
+    fn = BUILDER.library("row_pass").row_pass_config
+    fn.argtypes = CONFIG_ARGS
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(_CONFIG_KEYS))()
+    err = fn(W, int(mode == "partials"), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"row_pass_config: CUDA error {err}")
+    out = dict(zip(_CONFIG_KEYS, info))
+    out["variant"] = "one-pass" if out.pop("one_pass") else "two-read"
+    return out
 
 
 class PlainCount:

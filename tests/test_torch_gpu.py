@@ -21,6 +21,7 @@ from cuopt_torch.lp.solve import solve_lp
 from cuopt_torch.problem.mittelmann import GENERATORS
 from cuopt_torch.problem.synthetic import generate_lp
 from cuopt_torch.sparse import build_operator
+from cuopt_torch.sparse.ops import BlockBandOp, _tile_windows
 from cuopt_torch.sparse.reorder import permute_csr
 
 torch.set_num_threads(1)
@@ -36,7 +37,10 @@ def cuda():
 
 def _op(case, device):
     """A float32 BlockBandOp on `device`: banded (W=256), the same matrix
-    shuffled and reordered (with spill), or degen-transport (W=4224)."""
+    shuffled and reordered (with spill), degen-transport (W=4224), or one
+    of WIDTH_CASES."""
+    if case in WIDTH_CASES:
+        return _op_of_width(*WIDTH_CASES[case], device)
     if case == "wide":
         p = GENERATORS["degen-transport"](2000, 0)
         offsets, indices, values = p.offsets, p.indices, p.values
@@ -58,11 +62,53 @@ def _op(case, device):
     return getattr(op, "inner", op)
 
 
+def _op_of_width(n, W, band, device):
+    """A float32 BlockBandOp of generate_lp(n, n, 6, seed=5, band=band)
+    whose row slabs have window width W exactly: the builder's choice of
+    width is bypassed, entries outside the windows go to the spill. Only
+    the row side is built; the row pass reads nothing else."""
+    p = generate_lp(n, n, 6, seed=5, band=band)
+    offsets, indices = np.asarray(p.offsets), np.asarray(p.indices)
+    values = np.asarray(p.values, np.float32)
+    starts, inside = _tile_windows(offsets, indices, n, 128, W)
+    rows = np.repeat(np.arange(n), np.diff(offsets))
+    t_of = rows // 128
+    slabs = np.zeros((-(-n // 128), 128, W), np.float32)
+    np.add.at(slabs, (t_of[inside], rows[inside] % 128,
+                      indices[inside] - starts[t_of[inside]]),
+              values[inside])
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    none_f, none_i = t(np.zeros(0, np.float32)), t(np.zeros(0, np.int64))
+    return BlockBandOp(
+        n_rows=n, n_cols=n, tile=128, w_row=W, w_col=128,
+        row_starts=tuple(int(s) for s in starts), col_starts=(0,),
+        row_slabs=t(slabs), col_slabs=t(np.zeros((1, 128, 128), np.float32)),
+        spill_vals=t(values[~inside]), spill_rows=t(rows[~inside]),
+        spill_cols=t(indices[~inside].astype(np.int64)),
+        t_spill_vals=none_f, t_spill_rows=none_i, t_spill_cols=none_i)
+
+
+# (n, W, band): both sides of the width limit, and a tile count (397)
+# that is no multiple of the card's resident blocks (3 x 132) or of the
+# ring's stages, with a ragged last tile
+WIDTH_CASES = {
+    "w-one-pass": (3000, pf.W_ONE_PASS, 900),
+    "w-two-read": (3000, pf.W_ONE_PASS + 128, 900),
+    "ragged-397-tiles": (397 * 128 - 37, 384, 256),
+}
+
+
 @pytest.mark.parametrize("mode", ["atomic", "partials"])
-@pytest.mark.parametrize("case", ["banded", "shuffled", "wide"])
+@pytest.mark.parametrize("case", ["banded", "shuffled", "wide",
+                                  *WIDTH_CASES])
 def test_kernel_matches_plain(cuda, case, mode):
     op = _op(case, cuda)
     assert pf.fused_pass_supported(op, torch.float32)
+    body = "one-pass" if op.w_row <= pf.W_ONE_PASS else "two-read"
+    assert pf.kernel_config(op.w_row, mode)["variant"] == body
     pf.reset_counts()
     out = check_row_pass(op, mode, row_pass_inputs(op, seed=3))
     assert out["ok"], out

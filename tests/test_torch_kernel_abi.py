@@ -1,0 +1,84 @@
+"""The ctypes declarations of cuopt_torch's kernels against their C source.
+
+The wrappers in cuopt_torch/lp/pdhg_fused.py call the `extern "C"` entry
+points of cuopt_torch/csrc/row_pass.cu through ctypes, which trusts the
+declared argument types: a pointer declared as an int is cut to 32 bits
+without a word. These tests parse the C prototypes and hold every
+declaration against them, on the CPU (nothing is compiled).
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from cuopt_torch.lp import pdhg_fused as pf
+
+torch.set_num_threads(1)
+
+SOURCE = Path(pf.__file__).resolve().parent.parent / "csrc" / "row_pass.cu"
+
+
+def _prototypes() -> dict:
+    """{name: (return type, [parameter types])} of the extern "C" block."""
+    src = SOURCE.read_text()
+    block = src[src.index('extern "C" {'):]
+    block = re.sub(r"//[^\n]*", "", block)
+    out = {}
+    for ret, name, params in re.findall(
+            r"^((?:const\s+)?\w+\s*\**)\s*(\w+)\s*\(([^)]*)\)\s*\{",
+            block, flags=re.M):
+        types = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            # drop the parameter's name, keep its type
+            types.append(re.sub(r"\s*\b\w+$", "", p).replace(" *", "*"))
+        out[name] = (" ".join(ret.split()), types)
+    return out
+
+
+def _ctype_of(c_type: str):
+    if c_type.endswith("*"):
+        return ctypes.c_void_p
+    if c_type == "int":
+        return ctypes.c_int
+    raise AssertionError(f"no ctypes rule for C type {c_type!r}")
+
+
+def test_every_entry_point_is_declared():
+    declared = {k.name for k in pf.KERNELS} | {"row_pass_config",
+                                                "cuda_error_string"}
+    assert set(_prototypes()) == declared
+
+
+@pytest.mark.parametrize("kernel", pf.KERNELS, ids=lambda k: k.name)
+def test_kernel_argtypes_match_the_prototype(kernel):
+    assert kernel.source == "row_pass"
+    ret, params = _prototypes()[kernel.name]
+    assert ret == "int"  # the cudaError_t of the launch
+    assert len(kernel.argtypes) == len(params)
+    for i, (declared, c_type) in enumerate(zip(kernel.argtypes, params)):
+        assert declared is _ctype_of(c_type), (kernel.name, i, c_type)
+    # the last argument is the stream, a pointer
+    assert params[-1] == "void*"
+
+
+def test_config_argtypes_match_the_prototype():
+    ret, params = _prototypes()["row_pass_config"]
+    assert ret == "int"
+    assert [_ctype_of(c) for c in params] == pf.CONFIG_ARGS
+
+
+def test_error_string_exists():
+    ret, params = _prototypes()["cuda_error_string"]
+    assert ret == "const char*"
+    assert params == ["int"]
+
+
+def test_one_pass_width_matches_the_source():
+    m = re.search(r"constexpr int W_ONE_PASS = (\d+);", SOURCE.read_text())
+    assert m, "W_ONE_PASS not found in row_pass.cu"
+    assert int(m.group(1)) == pf.W_ONE_PASS
+    assert pf.W_ONE_PASS % 128 == 0 and pf.W_ONE_PASS >= 1024
