@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of cuopt_torch on one CUDA card: build, check, solve.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py    # every phase, one card
 
 Phases (any failure exits non-zero; without a CUDA card nothing runs):
   1. device: the card's name and power limit, torch and CUDA versions,
      and the nvcc build of cuopt_torch/csrc, with ptxas' registers,
      shared memory and spills for each kernel instantiation (the
-     one-pass bodies must not spill);
+     one-pass and column-split bodies must not spill);
   2. kernels: every kernel of the fused row pass against its plain
      PyTorch version on the card, in both modes, on the 50k staircase,
      its shuffled copy (reordered, with spill), degen-transport at scale
      100,000 (W=4224) and the 300k staircase; the partials mode must give
-     the same bits twice. Each shape prints the kernel body it ran
-     (one-pass up to W_ONE_PASS, two-read above), its resident blocks
-     per SM and its time as a share of the one-read bound. Times are
-     device times: CUDA-event means over 50 calls captured in a CUDA
-     graph (no host launch cost);
+     the same bits twice, and its A^T y exactly the bits of its per-tile
+     parts summed in the plan's order. Each shape prints the kernel body
+     it ran (one-pass up to W_ONE_PASS, column-split up to
+     W_COLUMN_SPLIT), its resident blocks per SM and its time as a share
+     of the one-read bound. Times are device times: CUDA-event means over
+     50 calls captured in a CUDA graph (no host launch cost);
   3-5. solve_lp in float32 on the 50k staircase, its shuffled copy and
      the 300k staircase: OPTIMAL, objective within 1e-3 relative of
      scipy's HiGHS, the primal residual rechecked on the host in float64,
      and every step attempt launched through the row-pass kernels;
-  6. profile: the 50k and the 300k solve once more under torch.profiler,
-     for the device's busy time, its idle share and the kernels that take
-     the most device time.
+  6. solve_lp in float32 on degen-transport at scale 100,000, which PDLP
+     does not solve in reasonable time, to a fixed 400 steps:
+     ITERATION_LIMIT, finite iterates, every attempt through the
+     column-split body of row_pass_partials;
+  7. profile: the 50k, the 300k and the degen-transport solves once more
+     under torch.profiler, for the device's busy time, its idle share,
+     the row pass's share of device time and the kernels that take the
+     most device time.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -56,6 +62,7 @@ OBJ_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_TIMED = 50
+DEGEN_STEPS = 400  # ten majors of 40 steps
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -174,9 +181,9 @@ def phase_device():
             log(f"  ptxas {name}: {fn}: {r['registers']} registers, "
                 f"{r['smem']} bytes static smem, {r['spill_stores']} / "
                 f"{r['spill_loads']} bytes spill stores / loads")
-            require(not ("one_pass" in fn and r["spill_stores"]
-                         + r["spill_loads"]),
-                    f"{fn} spills registers: W_ONE_PASS is too wide")
+            require(not (("one_pass" in fn or "column_split" in fn)
+                         and r["spill_stores"] + r["spill_loads"]),
+                    f"{fn} spills registers: its width limit is too wide")
 
 
 def ptxas_report(out: str) -> dict:
@@ -216,12 +223,12 @@ def ptxas_report(out: str) -> dict:
 # ----------------------------------------------------------- phase 2
 def _row_pass_cost(op, inputs, mode):
     """(bytes, flops) the row pass must move and do: each input read
-    once, each output written once."""
-    T, _, W = op.row_slabs.shape
+    once, each output (ax_new, y_new, A^T y) written once. The partials
+    mode's per-tile parts are the kernel's scratch, not an output."""
     n, m = op.shape
     vec_in = sum(v.numel() for v in inputs if v is not None)
-    out = 2 * n + (m if mode == "atomic" else T * W)
-    n_bytes = 4 * (op.row_slabs.numel() + T + vec_in + out)
+    n_bytes = 4 * (op.row_slabs.numel() + op.row_slabs.shape[0] + vec_in
+                   + 2 * n + m)
     return n_bytes, 4.0 * op.row_slabs.numel() + 10.0 * n
 
 
@@ -263,8 +270,9 @@ def phase_kernels(ops):
         t_bmm = cuda_ms(bmm_pair)
         for mode in ("atomic", "partials"):
             res = check_row_pass(op, mode, inputs)
-            det = f", deterministic {res['deterministic']}" \
-                if mode == "partials" else ""
+            det = (f", deterministic {res['deterministic']}, folded "
+                   f"exact {res['folded_exact']}") if mode == "partials" \
+                else ""
             log(f"[kernels] {name} {mode}: ax err {res['ax_err']:.3g}, "
                 f"y err {res['y_err']:.3g}, aty err {res['aty_err']:.3g}, "
                 f"dots err {res['interaction_err']:.3g} / "
@@ -278,16 +286,11 @@ def phase_kernels(ops):
                 f"{cfg['threads']} threads, {cfg['registers']} registers, "
                 f"{cfg['smem_bytes']} bytes smem, {cfg['local_bytes']} "
                 f"bytes local, {cfg['blocks_per_sm']} resident blocks/SM")
-            require(cfg["variant"] == ("one-pass" if W <= pf.W_ONE_PASS
-                                       else "two-read"),
+            require(cfg["variant"] == pf.body_of_width(W),
                     f"{name}: W={W} ran the {cfg['variant']} body")
             ms = cuda_ms(lambda: pf.row_pass_kernel(op, *inputs, mode))
-            if mode == "atomic":
-                plain = cuda_ms(lambda: pf.row_pass_reference(
-                    op, *inputs, "atomic"))
-            else:
-                plain = cuda_ms(lambda: pf.row_pass_partials_reference(
-                    op, *inputs))
+            plain = cuda_ms(lambda: pf.row_pass_reference(op, *inputs,
+                                                          mode))
             b_ms, b_by = bound_ms(*_row_pass_cost(op, inputs, mode))
             records[(name, kern.name)] = dict(
                 max_abs_err=res["max_abs_err"], ms=ms, plain_ms=plain,
@@ -299,42 +302,7 @@ def phase_kernels(ops):
                 f"({cfg['variant']}), bound {b_ms:.4f} ms ({b_by}), share "
                 f"of bound {100 * b_ms / ms:.1f}%, plain {plain:.4f} ms, "
                 f"bmm pair {t_bmm:.4f} ms")
-            if mode == "partials":
-                records[(name, "reduce_partials")] = _time_reduce(
-                    pf, op, inputs, name)
     return records
-
-
-def _time_reduce(pf, op, inputs, name):
-    import torch
-
-    _, _, parts = pf.row_pass_kernel(op, *inputs, "partials")
-    got = pf.reduce_partials(op, parts)
-    want = pf.reduce_partials_reference(op, parts)
-    again = pf.reduce_partials(op, parts)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    require(err <= 1e-5 * (1 + want.abs().max().item()),
-            f"{name} reduce_partials disagrees: {err}")
-    require(torch.equal(got, again),
-            f"{name} reduce_partials is not deterministic")
-    p = pf.plan(op)
-    ms = cuda_ms(lambda: pf.reduce_partials(op, parts))
-    plain = cuda_ms(lambda: pf.reduce_partials_reference(op, parts))
-    # the library yardstick: one index_add_ of the parts into A^T y
-    buf = torch.zeros(p.n_cols_pad, device=parts.device)
-    idx, src = op.row_win.reshape(-1), parts.reshape(-1)
-    lib = cuda_ms(lambda: buf.index_add_(0, idx, src))
-    n_rows_listed = p.cb_rows.numel()
-    n_bytes = 4 * (n_rows_listed * 128 + p.cb_offsets.numel()
-                   + n_rows_listed + op.n_cols)
-    b_ms, b_by = bound_ms(n_bytes, 128.0 * n_rows_listed)
-    log(f"[kernels] {name} reduce_partials: err {err:.3g}, {ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}), plain {plain:.4f} ms, index_add_ "
-        f"{lib:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib, variant="single-body",
-                share_of_bound=b_ms / ms)
 
 
 # -------------------------------------------------------- phases 3-5
@@ -353,20 +321,26 @@ def host_primal_residual(prob, x):
     return float(np.linalg.norm(viol)), float(np.linalg.norm(b))
 
 
-def phase_solve(name, prob, n, kernels):
-    """solve_lp in float32 on the card; checks status, objective, the host
-    residual and that each attempt went through `kernels`. Returns the
-    kernels' launch counts of this solve."""
-    import torch
-
-    from cuopt_torch.lp import pdhg_fused as pf
+def _settings(iteration_limit):
     from cuopt_torch.lp.settings import PDLPSolverSettings
-    from cuopt_torch.lp.solve import solve_lp
 
     s = PDLPSolverSettings()
     s.dtype = "float32"
-    s.iteration_limit = 20000
+    s.iteration_limit = iteration_limit
     s.log_to_console = False
+    return s
+
+
+def _solve(name, prob, s, kernels):
+    """solve_lp in float32 on the card with the launch counts reset just
+    before it; prints its status, steps, loop rate and launches and checks
+    that each attempt went through `kernels` and never through the plain
+    version. Returns (solution, info, launch counts)."""
+    import torch
+
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp.solve import solve_lp
+
     torch.cuda.reset_peak_memory_stats()
     pf.reset_counts()
     t0 = time.perf_counter()
@@ -376,18 +350,15 @@ def phase_solve(name, prob, n, kernels):
     launches = {k.name: k.launches for k in pf.KERNELS}
     plain = pf.PlainCount.calls
     info = sol.get_additional_termination_information()
-    status = sol.get_termination_reason()
-    obj = sol.get_primal_objective()
-    rel = abs(obj - HIGHS_OBJ[n]) / abs(HIGHS_OBJ[n])
     steps, attempts = info["iterations"], info["attempts"]
     loop_s = info["solve_loop_s"]
-    slab_bytes = None
     dev = getattr(prob, "_cuopt_torch_device_cache", (None, None))[1]
-    if dev is not None and hasattr(dev.op, "row_slabs"):
-        slab_bytes = dev.op.row_slabs.numel() * 4
-    log(f"[solve] {name}: {status}, objective {obj:.6f} (HiGHS "
-        f"{HIGHS_OBJ[n]:.5f}, rel err {rel:.2e}), {steps} steps, "
-        f"{attempts} attempts, operator {type(dev.op).__name__ if dev else '?'}")
+    op = dev.op if dev is not None else None
+    slab_bytes = op.row_slabs.numel() * 4 if hasattr(op, "row_slabs") \
+        else None
+    shape = tuple(op.row_slabs.shape) if slab_bytes else None
+    log(f"[solve] {name}: {sol.get_termination_reason()}, {steps} steps, "
+        f"{attempts} attempts, operator {type(op).__name__} slabs {shape}")
     loop_steps, loop_att = info["loop_steps"], info["loop_attempts"]
     rate = loop_steps / loop_s if loop_s > 0 else float("nan")
     gbps = (loop_att * slab_bytes / loop_s / 1e9
@@ -398,6 +369,26 @@ def phase_solve(name, prob, n, kernels):
         f"wall {wall:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log(f"[solve] {name}: launches {launches}, plain-version calls {plain}")
+    require(plain == 0, f"{name}: the plain row pass ran {plain} times")
+    for k in kernels:
+        require(launches[k] == attempts,
+                f"{name}: {k} launched {launches[k]} times for {attempts} "
+                f"step attempts")
+    return sol, info, launches
+
+
+def phase_solve(name, prob, n, kernels):
+    """A staircase solved to optimality: checks status, objective and the
+    host residual besides what `_solve` checks. Returns the kernels'
+    launch counts of this solve."""
+    s = _settings(20000)
+    sol, info, launches = _solve(name, prob, s, kernels)
+    status = sol.get_termination_reason()
+    obj = sol.get_primal_objective()
+    rel = abs(obj - HIGHS_OBJ[n]) / abs(HIGHS_OBJ[n])
+    steps, attempts = info["iterations"], info["attempts"]
+    log(f"[solve] {name}: objective {obj:.6f} (HiGHS {HIGHS_OBJ[n]:.5f}, "
+        f"rel err {rel:.2e})")
     want_steps, want_att = JAX_STEPS[n]
     if abs(steps - want_steps) > 0.2 * want_steps or \
             abs(attempts - want_att) > 0.2 * want_att:
@@ -412,32 +403,62 @@ def phase_solve(name, prob, n, kernels):
     log(f"[solve] {name}: host float64 primal residual {res:.4e} "
         f"(limit {limit:.4e})")
     require(res <= limit, f"{name}: primal residual {res} > {limit}")
-    require(plain == 0, f"{name}: the plain row pass ran {plain} times")
-    for k in kernels:
-        require(launches[k] == attempts,
-                f"{name}: {k} launched {launches[k]} times for {attempts} "
-                f"step attempts")
     return launches
 
 
 # ------------------------------------------------------------ phase 6
-def phase_profile(name, prob):
+def degen_transport():
+    from cuopt_torch.problem.mittelmann import GENERATORS
+
+    return GENERATORS["degen-transport"](100_000, 0)
+
+
+def phase_degen_solve(prob):
+    """degen-transport-100k to DEGEN_STEPS steps: ITERATION_LIMIT, finite
+    iterates, every attempt through row_pass_partials. Returns the
+    kernels' launch counts of this solve."""
+    sol, info, launches = _solve("degen-transport-100k", prob,
+                                 _settings(DEGEN_STEPS),
+                                 ("row_pass_partials",))
+    # the layout's price: the slabs against a float32 CSR copy (values,
+    # int32 column indices and row offsets)
+    n_slab = prob._cuopt_torch_device_cache[1].op.row_slabs.numel()
+    csr_bytes = 4 * (2 * prob.nnz + prob.n_constraints + 1)
+    log(f"[solve] degen-transport-100k: {prob.nnz} nonzeros in {n_slab} "
+        f"slab entries ({100 * prob.nnz / n_slab:.2f}% dense): "
+        f"{4 * n_slab / 1e6:.1f} MB of slabs against {csr_bytes / 1e6:.1f} "
+        f"MB as float32 CSR ({4 * n_slab / csr_bytes:.1f}x)")
+    status = sol.get_termination_reason()
+    x, y = sol.get_primal_solution(), sol.get_dual_solution()
+    log(f"[solve] degen-transport-100k: primal objective "
+        f"{sol.get_primal_objective():.6f}, |x|max "
+        f"{np.max(np.abs(x)):.4e}, |y|max {np.max(np.abs(y)):.4e}")
+    require(status == "IterationLimit",
+            f"degen-transport-100k: status {status}")
+    require(info["iterations"] == DEGEN_STEPS,
+            f"degen-transport-100k: {info['iterations']} steps")
+    require(x.shape == (prob.n_variables,) and y.shape ==
+            (prob.n_constraints,), "degen-transport-100k: solution shapes")
+    require(bool(np.all(np.isfinite(x)) and np.all(np.isfinite(y))),
+            "degen-transport-100k: iterates not finite")
+    return launches
+
+
+# ------------------------------------------------------------ phase 7
+def phase_profile(name, prob, iteration_limit=20000):
     """Where a float32 solve's time goes: the solve runs once unprofiled
     (device problem cached, kernels built), then again under
     torch.profiler. Prints the unprofiled wall time, the device time
     summed over all kernels, the device's idle share (1 - device time /
-    unprofiled wall) and the kernels that take most device time."""
+    unprofiled wall), the row pass's share of device time and the kernels
+    that take most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from cuopt_torch.lp.settings import PDLPSolverSettings
     from cuopt_torch.lp.solve import solve_lp
 
-    s = PDLPSolverSettings()
-    s.dtype = "float32"
-    s.iteration_limit = 20000
-    s.log_to_console = False
+    s = _settings(iteration_limit)
     solve_lp(prob, s)  # builds and caches the device problem
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -457,11 +478,14 @@ def phase_profile(name, prob):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
+    pass_s = sum(r[1] for r in rows if "row_pass" in r[0]) / 1e6
     steps = sol.get_nb_iterations()
     log(f"[profile] {name}: {steps} steps, unprofiled solve {wall:.4f} s "
-        f"({1e3 * wall / steps:.4f} ms/step), device busy "
-        f"{busy_s:.4f} s ({1e3 * busy_s / steps:.4f} ms/step), idle share "
-        f"{1 - busy_s / wall:.3f}")
+        f"({1e3 * wall / steps:.4f} ms/step, {steps / wall:.1f} steps/s), "
+        f"device busy {busy_s:.4f} s ({1e3 * busy_s / steps:.4f} "
+        f"ms/step), idle share {1 - busy_s / wall:.3f}, row pass "
+        f"{1e3 * pass_s / steps:.4f} ms/step = {100 * pass_s / busy_s:.1f}% "
+        f"of device time, {100 * pass_s / wall:.1f}% of wall")
     for key, us, count in rows[:12]:
         log(f"[profile] {name}:   {us / 1e3:9.3f} ms  {count:7d} x  "
             f"{key[:90]}")
@@ -478,21 +502,19 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import cuopt_torch  # noqa: F401  (fails outside a checkout)
     from cuopt_torch.lp import pdhg_fused as pf
-    from cuopt_torch.problem.mittelmann import GENERATORS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_device()
-
     p50 = staircase(50_000)
     p50s = shuffled(p50)
     p300 = staircase(300_000)
+    pd = degen_transport()
     ops = {
         "staircase-50k": band_operator(p50, "blockband"),
         "shuffled-50k": band_operator(p50s, "bandperm"),
-        "degen-transport-100k": band_operator(
-            GENERATORS["degen-transport"](100_000, 0), "bandperm"),
+        "degen-transport-100k": band_operator(pd, "bandperm"),
         "staircase-300k": band_operator(p300, "blockband"),
     }
     records = phase_kernels(ops)
@@ -504,24 +526,27 @@ def main() -> int:
     for name, prob, n, kernels in (
             ("staircase-50k", p50, 50_000, ("row_pass_atomic",)),
             ("shuffled-50k", p50s, 50_000, ("row_pass_atomic",)),
-            ("staircase-300k", p300, 300_000,
-             ("row_pass_partials", "reduce_partials"))):
+            ("staircase-300k", p300, 300_000, ("row_pass_partials",))):
         launches = phase_solve(name, prob, n, kernels)
         for k, v in launches.items():
             total[k] += v
         log(f"[solve] {name} done at {time.perf_counter() - t_start:.1f} s")
+    for k, v in phase_degen_solve(pd).items():
+        total[k] += v
+    log(f"[solve] degen-transport-100k done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     for k in pf.KERNELS:
         require(total[k.name] > 0,
                 f"{k.name} was never launched on the main path")
 
     phase_profile("staircase-50k", p50)
     phase_profile("staircase-300k", p300)
+    phase_profile("degen-transport-100k", pd, DEGEN_STEPS)
     log(f"[profile] done at {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",
-                "row_pass_partials": "staircase-300k",
-                "reduce_partials": "staircase-300k"}
+                "row_pass_partials": "staircase-300k"}
     kernels = []
     for k in pf.KERNELS:
         rec = records[(shape_of[k.name], k.name)]
@@ -531,6 +556,9 @@ def main() -> int:
             "replaces": k.replaces, "launches": total[k.name],
             "shape": shape_of[k.name],
             **rec,
+            # the same kernel at the main path's widest window
+            "degen_transport_100k": records[("degen-transport-100k",
+                                             k.name)],
         })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

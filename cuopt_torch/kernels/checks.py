@@ -9,6 +9,9 @@ Tolerances: ax, y_new and A^T y within 1e-5 of 1 + max|plain| (float32
 sums taken in another order; the atomic mode's order also changes from
 run to run); the step-size dot products dy.(ax_new - ax_old) and dy.dy
 within 1e-3 of 1 + |plain| (reductions of the above over all rows).
+The partials mode must give the same bits twice, and its A^T y must have
+exactly the bits of its own per-tile parts summed in the plan's order
+(`reduce_partials_reference`).
 """
 
 from __future__ import annotations
@@ -49,11 +52,28 @@ def _dots(y, ax_old, ax_new, y_new):
     return torch.dot(dy, ax_new - ax_old), torch.dot(dy, dy)
 
 
+def fold_is_exact(op, inputs) -> bool:
+    """Whether the partials pass's A^T y has the bits of its per-tile
+    parts summed one after another in the plan's (tile-ascending) order,
+    the order of `reduce_partials_reference`, which keeps that order on
+    the CPU."""
+    if inputs[0].is_cuda:
+        parts = torch.empty(op.row_slabs.shape[0], op.w_row,
+                            dtype=torch.float32, device=inputs[0].device)
+        aty = pf.row_pass_kernel(op, *inputs, "partials", parts=parts)[2]
+    else:
+        parts = pf.row_pass_partials_reference(op, *inputs)[2]
+        aty = pf.row_pass_reference(op, *inputs, "partials")[2]
+    return torch.equal(aty.cpu(),
+                       pf.reduce_partials_reference(op, parts.cpu()))
+
+
 def check_row_pass(op, mode: str, inputs) -> dict:
-    """Run the kernel(s) of `mode` and the plain version on `inputs`.
+    """Run the kernel of `mode` and the plain version on `inputs`.
     Returns the errors, whether they are within the tolerances (`ok`),
     and, for the partials mode, whether a second run gave the same bits
-    (`deterministic`)."""
+    (`deterministic`) and whether A^T y is its parts summed in the plan's
+    order (`folded_exact`)."""
     x, ax_old, ax_spill, y, lc, uc, sigma = inputs
     got = pf.row_pass(op, x, ax_old, ax_spill, y, lc, uc, sigma, mode)
     ref = pf.row_pass_reference(op, x, ax_old, ax_spill, y, lc, uc, sigma,
@@ -76,6 +96,8 @@ def check_row_pass(op, mode: str, inputs) -> dict:
         again = pf.row_pass(op, x, ax_old, ax_spill, y, lc, uc, sigma, mode)
         out["deterministic"] = all(torch.equal(a, b)
                                    for a, b in zip(got, again))
+        out["folded_exact"] = fold_is_exact(op, inputs)
     out["ok"] = all(v for k, v in out.items()
-                    if k.endswith("_ok") or k == "deterministic")
+                    if k.endswith("_ok")
+                    or k in ("deterministic", "folded_exact"))
     return out

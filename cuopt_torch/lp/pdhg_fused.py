@@ -13,18 +13,21 @@ once per step attempt instead of twice.
 On a CUDA tensor the pass runs the hand-written kernels of
 cuopt_torch/csrc/row_pass.cu; on a CPU tensor it runs their plain
 PyTorch version (`row_pass_reference`). Nothing falls back: a CUDA call
-launches the kernel or raises. Up to a window width of W_ONE_PASS the
+launches the kernel or raises. Up to a window width of W_COLUMN_SPLIT the
 kernel reads each slab byte from device memory once: it adds each row
-into A^T y as soon as the row's y_new is known. Wider windows take a
-body that reads the slab a second time for the transpose; the width
-alone picks the body (`kernel_config` says which).
+into A^T y as soon as the row's y_new is known. Windows up to W_ONE_PASS
+take the one-pass body (a warp per row), wider ones the column-split body
+(the window's columns split across the warps); windows wider still take
+a body that reads the slab a second time for the transpose. The width
+alone picks the body (`body_of_width`; `kernel_config` says what ran).
 
 Two modes, as cuopt_tpu has two kernels:
   - "atomic" (cuopt_tpu `_kernel`): tiles add their A^T y parts into a
     zeroed vector with atomicAdd; the sum order varies from run to run.
-  - "partials" (cuopt_tpu `_kernel_stream`): tiles write their parts and
-    `reduce_partials` sums each 128-column block in a fixed order, so two
-    runs give the same bits.
+  - "partials" (cuopt_tpu `_kernel_stream` and the segment sum after it):
+    tiles write their parts, and the tile that completes a 128-column
+    block sums that block's parts in a fixed order inside the same
+    launch, so two runs give the same bits.
 The mode follows cuopt_tpu's selection rule (see PARTIALS_MIN_COLS).
 
 Entries outside the slab windows (spill) are handled here in torch: the
@@ -51,17 +54,23 @@ from cuopt_torch.sparse.ops import BlockBandOp, _segment_sum
 # bounded by it. The port's bench will refit it.
 PARTIALS_MIN_COLS = 1 << 18
 
-# Widest window the one-pass kernel body takes (W_ONE_PASS in
-# csrc/row_pass.cu); wider windows run the two-read body.
+# Widest windows of the one-pass and the column-split kernel bodies
+# (W_ONE_PASS, W_COLUMN_SPLIT in csrc/row_pass.cu); wider windows run the
+# two-read body.
 W_ONE_PASS = 1024
+W_COLUMN_SPLIT = 8192
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ROW_PASS_ARGS = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                  _P, _P, _P, _P]
+# slabs, starts, T, W, n_rows, n_cols, then x .. y_out
+_PASS_ARGS = [_P, _P, _I, _I, _I, _I] + [_P] * 9
+_ATOMIC_ARGS = _PASS_ARGS + [_P, _P]  # aty, stream
+# parts, cb_offsets, cb_rows, counters, n_blocks, aty, stream
+_PARTIALS_ARGS = _PASS_ARGS + [_P, _P, _P, _P, _I, _P, _P]
 CONFIG_ARGS = [_I, _I, _P]  # row_pass_config(W, partials, int info[6])
-_CONFIG_KEYS = ("one_pass", "threads", "registers", "smem_bytes",
+_CONFIG_KEYS = ("body", "threads", "registers", "smem_bytes",
                 "local_bytes", "blocks_per_sm")
+_BODIES = ("two-read", "one-pass", "column-split")  # row_pass_config codes
 
 
 class Kernel:
@@ -94,25 +103,30 @@ class Kernel:
         self.launches += 1
 
 
-# `replaces`: the TPU kernel body (_kernel, _kernel_stream) or, for the
-# reduction, the segment sum that follows _kernel_stream
+# `replaces`: the TPU kernel body (_kernel, _kernel_stream); the partials
+# kernel also does the segment sum that follows _kernel_stream
+# (pdhg_pallas.py:428)
 ROW_PASS_ATOMIC = Kernel(
-    "row_pass_atomic", "row_pass", _ROW_PASS_ARGS,
+    "row_pass_atomic", "row_pass", _ATOMIC_ARGS,
     "cuopt_tpu/lp/pdhg_pallas.py:99")
 ROW_PASS_PARTIALS = Kernel(
-    "row_pass_partials", "row_pass", _ROW_PASS_ARGS,
+    "row_pass_partials", "row_pass", _PARTIALS_ARGS,
     "cuopt_tpu/lp/pdhg_pallas.py:253")
-REDUCE_PARTIALS = Kernel(
-    "reduce_partials", "row_pass", [_P, _P, _P, _I, _I, _P, _P],
-    "cuopt_tpu/lp/pdhg_pallas.py:428")
-KERNELS = (ROW_PASS_ATOMIC, ROW_PASS_PARTIALS, REDUCE_PARTIALS)
+KERNELS = (ROW_PASS_ATOMIC, ROW_PASS_PARTIALS)
+
+
+def body_of_width(W: int) -> str:
+    """The kernel body the row pass runs at window width W."""
+    return ("one-pass" if W <= W_ONE_PASS else
+            "column-split" if W <= W_COLUMN_SPLIT else "two-read")
 
 
 def kernel_config(W: int, mode: str) -> dict:
     """What the row pass of `mode` runs at window width W on the current
-    CUDA device: its body (`variant` "one-pass" or "two-read"), threads
-    per block, registers per thread, shared memory per block, local
-    memory per thread and resident blocks per SM. Launches nothing."""
+    CUDA device: its body (`variant`, as `body_of_width` names it),
+    threads per block, registers per thread, shared memory per block,
+    local memory per thread and resident blocks per SM. Launches
+    nothing."""
     fn = BUILDER.library("row_pass").row_pass_config
     fn.argtypes = CONFIG_ARGS
     fn.restype = ctypes.c_int
@@ -121,7 +135,7 @@ def kernel_config(W: int, mode: str) -> dict:
     if err != 0:
         raise RuntimeError(f"row_pass_config: CUDA error {err}")
     out = dict(zip(_CONFIG_KEYS, info))
-    out["variant"] = "one-pass" if out.pop("one_pass") else "two-read"
+    out["variant"] = _BODIES[out.pop("body")]
     return out
 
 
@@ -163,6 +177,11 @@ class RowPassPlan:
     cb_offsets: torch.Tensor  # (n_blocks + 1,) int32
     cb_rows: torch.Tensor     # (E,) int32 rows of the (T*W/128, 128) parts
     cb_of_row: torch.Tensor   # (E,) int64 column block of each listed row
+    covered: bool             # every column block has a listed row
+    # (n_blocks,) int32 arrival counts of the partials kernel: zero
+    # between launches (the kernel resets them), so two passes over one
+    # operator must not run at the same time
+    counters: torch.Tensor
 
 
 def plan(op: BlockBandOp) -> RowPassPlan:
@@ -179,8 +198,9 @@ def plan(op: BlockBandOp) -> RowPassPlan:
     blk, rows = blk[keep], rows[keep]
     order = np.lexsort((rows, blk))  # by column block, then tile
     blk, rows = blk[order], rows[order]
+    counts = np.bincount(blk, minlength=n_blocks)
     offsets = np.zeros(n_blocks + 1, np.int64)
-    offsets[1:] = np.cumsum(np.bincount(blk, minlength=n_blocks))
+    offsets[1:] = np.cumsum(counts)
     dev = op.row_slabs.device
 
     def t(a, dt):
@@ -190,7 +210,8 @@ def plan(op: BlockBandOp) -> RowPassPlan:
         starts=t(op.row_starts, torch.int32),
         n_cols_pad=_col_pad(op), n_blocks=n_blocks,
         cb_offsets=t(offsets, torch.int32), cb_rows=t(rows, torch.int32),
-        cb_of_row=t(blk, torch.int64),
+        cb_of_row=t(blk, torch.int64), covered=bool(np.all(counts > 0)),
+        counters=torch.zeros(n_blocks, dtype=torch.int32, device=dev),
     )
     op._row_pass_plan = p
     return p
@@ -224,12 +245,17 @@ def row_pass_partials_reference(op, x, ax_old, ax_spill, y, lc0m, uc0m,
 
 
 def reduce_partials_reference(op, parts):
-    """Plain version of `reduce_partials`: each 128-column block's window
-    parts summed in the plan's (tile-ascending) order."""
+    """Plain version of the reduction folded into `row_pass_partials`:
+    each 128-column block's window parts summed in the plan's
+    (tile-ascending) order. On a CPU tensor index_add_ adds them one
+    after another in that order, as the kernel does, so the two give the
+    same bits; on a CUDA tensor the order varies. Column blocks no window
+    touches are 0."""
     p = plan(op)
-    rows = parts.reshape(-1, 128)[p.cb_rows.long()]
+    dev = parts.device
+    rows = parts.reshape(-1, 128)[p.cb_rows.to(dev).long()]
     return parts.new_zeros(p.n_blocks, 128).index_add_(
-        0, p.cb_of_row, rows).reshape(-1)[:op.n_cols]
+        0, p.cb_of_row.to(dev), rows).reshape(-1)[:op.n_cols]
 
 
 def row_pass_reference(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
@@ -259,10 +285,18 @@ def _check(name, t, shape, device):
 
 
 def row_pass_kernel(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
-                    mode: str):
+                    mode: str, parts=None):
     """Launch `row_pass_atomic` or `row_pass_partials` on CUDA tensors.
-    Returns (ax_new, y_new, out): out is aty (atomic) or the (T, W)
-    per-tile parts (partials)."""
+    Returns (ax_new, y_new, aty). The partials kernel writes the per-tile
+    parts to `parts` ((T, W) float32, allocated when None) on its way to
+    aty.
+
+    The partials kernel counts the tiles that have written each column
+    block in the operator's plan (`RowPassPlan.counters`) and resets the
+    counts as it finishes, so two partials passes over one operator must
+    never overlap: not on two streams, and not as a CUDA-graph replay
+    beside an eager launch. Overlapping passes would mix their counts and
+    give a wrong aty with no error."""
     p = plan(op)
     dev = x.device
     T, W = op.row_slabs.shape[0], op.w_row
@@ -290,31 +324,20 @@ def row_pass_kernel(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
                 y.data_ptr(), lc0m.data_ptr(), uc0m.data_ptr(),
                 sigma.data_ptr(), ax_out.data_ptr(), y_out.data_ptr())
         if mode == "atomic":
-            out = torch.zeros(n_cols, dtype=torch.float32, device=dev)
-            ROW_PASS_ATOMIC(*args, out.data_ptr(), stream)
+            aty = torch.zeros(n_cols, dtype=torch.float32, device=dev)
+            ROW_PASS_ATOMIC(*args, aty.data_ptr(), stream)
         else:
-            out = torch.empty(T, W, dtype=torch.float32, device=dev)
-            ROW_PASS_PARTIALS(*args, out.data_ptr(), stream)
-    return ax_out, y_out, out
-
-
-def reduce_partials(op, parts):
-    """aty (n_cols,) from the (T, W) parts of `row_pass_partials`, summed
-    in a fixed order by the `reduce_partials` kernel (CUDA tensors) or its
-    plain version (CPU tensors)."""
-    if parts.device.type == "cpu":
-        return reduce_partials_reference(op, parts)
-    if parts.device.type != "cuda":
-        raise ValueError(f"reduce_partials: no kernel for {parts.device}")
-    p = plan(op)
-    _check("parts", parts, (op.row_slabs.shape[0], op.w_row), parts.device)
-    aty = torch.empty(op.n_cols, dtype=torch.float32, device=parts.device)
-    with torch.cuda.device(parts.device):
-        REDUCE_PARTIALS(parts.data_ptr(), p.cb_offsets.data_ptr(),
-                        p.cb_rows.data_ptr(), p.n_blocks, op.n_cols,
-                        aty.data_ptr(),
-                        torch.cuda.current_stream(parts.device).cuda_stream)
-    return aty
+            if parts is None:
+                parts = torch.empty(T, W, dtype=torch.float32, device=dev)
+            _check("parts", parts, (T, W), dev)
+            # the kernel writes every column block a window touches
+            aty = (torch.empty if p.covered else torch.zeros)(
+                n_cols, dtype=torch.float32, device=dev)
+            ROW_PASS_PARTIALS(*args, parts.data_ptr(),
+                              p.cb_offsets.data_ptr(), p.cb_rows.data_ptr(),
+                              p.counters.data_ptr(), p.n_blocks,
+                              aty.data_ptr(), stream)
+    return ax_out, y_out, aty
 
 
 def row_pass(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
@@ -330,11 +353,8 @@ def row_pass(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
                                   sigma, mode)
     if x.device.type != "cuda":
         raise ValueError(f"row pass: no kernel for device {x.device}")
-    ax_new, y_new, out = row_pass_kernel(op, x, ax_old, ax_spill, y, lc0m,
-                                         uc0m, sigma, mode)
-    if mode == "partials":
-        out = reduce_partials(op, out)
-    return ax_new, y_new, out
+    return row_pass_kernel(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
+                           mode)
 
 
 def fused_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
@@ -347,7 +367,11 @@ def fused_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
     infinite), sigma 0-d. mode: None picks by PARTIALS_MIN_COLS.
 
     Returns (ax_new, y_new, aty_new, interaction_raw, dy_dot), with
-    interaction_raw = dy.(ax_new - ax_old) (unsigned by the caller)."""
+    interaction_raw = dy.(ax_new - ax_old) (unsigned by the caller).
+
+    On the card, two passes over one operator must not run at the same
+    time (see `row_pass_kernel`: the partials mode keeps per-operator
+    arrival counts)."""
     n_rows, n_cols = op.n_rows, op.n_cols
     spill = op.spill_vals.numel() > 0
     ax_spill = _segment_sum(op.spill_vals * x_new[op.spill_cols],

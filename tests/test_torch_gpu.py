@@ -91,12 +91,17 @@ def _op_of_width(n, W, band, device):
         t_spill_vals=none_f, t_spill_rows=none_i, t_spill_cols=none_i)
 
 
-# (n, W, band): both sides of the width limit, and a tile count (397)
-# that is no multiple of the card's resident blocks (3 x 132) or of the
-# ring's stages, with a ragged last tile
+# (n, W, band): both sides of each width limit (one-pass up to 1024,
+# column-split up to 8192 with a ragged last float4 column group at 1152,
+# two-read above), and a tile count (397) that is no multiple of the
+# card's resident blocks (3 x 132) or of the ring's stages, with a ragged
+# last tile. "wide" (degen-transport, W=4224) is the main path's width.
 WIDTH_CASES = {
     "w-one-pass": (3000, pf.W_ONE_PASS, 900),
-    "w-two-read": (3000, pf.W_ONE_PASS + 128, 900),
+    "w-1152": (3000, pf.W_ONE_PASS + 128, 900),
+    "w-2048": (3000, 2048, 900),
+    "w-column-split": (3000, pf.W_COLUMN_SPLIT, 900),
+    "w-two-read": (3000, pf.W_COLUMN_SPLIT + 128, 900),
     "ragged-397-tiles": (397 * 128 - 37, 384, 256),
 }
 
@@ -107,16 +112,43 @@ WIDTH_CASES = {
 def test_kernel_matches_plain(cuda, case, mode):
     op = _op(case, cuda)
     assert pf.fused_pass_supported(op, torch.float32)
-    body = "one-pass" if op.w_row <= pf.W_ONE_PASS else "two-read"
-    assert pf.kernel_config(op.w_row, mode)["variant"] == body
+    assert pf.kernel_config(op.w_row, mode)["variant"] == \
+        pf.body_of_width(op.w_row)
     pf.reset_counts()
     out = check_row_pass(op, mode, row_pass_inputs(op, seed=3))
     assert out["ok"], out
     kernel = pf.ROW_PASS_ATOMIC if mode == "atomic" else pf.ROW_PASS_PARTIALS
     assert kernel.launches >= 1 and pf.PlainCount.calls == 0
     if mode == "partials":
-        assert out["deterministic"]
-        assert pf.REDUCE_PARTIALS.launches == kernel.launches
+        # same bits twice, and A^T y exactly its parts in the plan's order
+        assert out["deterministic"] and out["folded_exact"]
+        assert pf.plan(op).counters.eq(0).all()  # reset for the next launch
+
+
+@pytest.mark.parametrize("mode", ["atomic", "partials"])
+def test_kernel_in_a_cuda_graph(cuda, mode):
+    """The launch replays in a CUDA graph: no host-side state, and the
+    partials mode's counters are back to zero after every launch."""
+    op = _op("wide", cuda)
+    assert op.w_row == 4224  # the main path's widest window
+    inputs = row_pass_inputs(op, seed=4)
+    want = pf.row_pass_kernel(op, *inputs, mode)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pf.row_pass_kernel(op, *inputs, mode)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pf.row_pass_kernel(op, *inputs, mode)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if mode == "partials":
+            assert torch.equal(a, b)
+        else:
+            assert torch.allclose(a, b, rtol=1e-5, atol=1e-5)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -82,3 +82,29 @@ def test_one_pass_width_matches_the_source():
     assert m, "W_ONE_PASS not found in row_pass.cu"
     assert int(m.group(1)) == pf.W_ONE_PASS
     assert pf.W_ONE_PASS % 128 == 0 and pf.W_ONE_PASS >= 1024
+
+
+def test_column_split_width_matches_the_source():
+    m = re.search(r"constexpr int W_COLUMN_SPLIT = (\d+);",
+                  SOURCE.read_text())
+    assert m, "W_COLUMN_SPLIT not found in row_pass.cu"
+    assert int(m.group(1)) == pf.W_COLUMN_SPLIT
+    # one template case per 1024 columns (with_n in row_pass.cu: 2..8)
+    assert pf.W_COLUMN_SPLIT % 1024 == 0
+    assert pf.W_COLUMN_SPLIT // 1024 == pf.W_ONE_PASS // 128 == 8
+
+
+@pytest.mark.parametrize("W,body", [
+    (128, "one-pass"), (pf.W_ONE_PASS, "one-pass"),
+    (pf.W_ONE_PASS + 128, "column-split"), (4224, "column-split"),
+    (pf.W_COLUMN_SPLIT, "column-split"),
+    (pf.W_COLUMN_SPLIT + 128, "two-read")])
+def test_body_of_width(W, body):
+    """The body the wrappers expect at each width, in the order of the
+    codes row_pass_config returns (0 two-read, 1 one-pass, 2
+    column-split)."""
+    assert pf.body_of_width(W) == body
+    assert pf._BODIES == ("two-read", "one-pass", "column-split")
+    src = SOURCE.read_text()
+    assert "enum Body { TWO_READ = 0, ONE_PASS = 1, COLUMN_SPLIT = 2 };" \
+        in src

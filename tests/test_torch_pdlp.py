@@ -212,12 +212,22 @@ def _infeasible(generate, n=128):
         row_names=[])
 
 
-def _unbounded(generate, n=128):
-    """A small staircase LP plus a variable in no row, with cost -1 and
-    no upper bound: dual infeasible, with the primal ray x = e_new."""
+def _unbounded(generate, n=128, cost=-10.0):
+    """A small staircase LP plus a variable in no row, with `cost` and no
+    upper bound: dual infeasible, with the primal ray x = e_new.
+
+    The cost -10 gives the ray's flag a margin. The two packages sum in
+    another order, so their iterates differ in the last bits from the
+    first step (`test_first_step_agrees_to_rounding`). With cost -1 this
+    LP amplified that about a thousandfold a major, and its best ray
+    score per major stayed near the 1e-3 tolerance until the iterates had
+    drifted apart, so the packages flagged different majors and stopped
+    at different steps. `_unbounded_drift` measures both; with cost -10
+    the scores are far from the tolerance at every major
+    (`test_unbounded_flag_has_a_margin`)."""
     p = generate(n, n, 4, seed=3, band=32)
     return dataclasses.replace(
-        p, objective_coefficients=np.append(p.objective_coefficients, -1.0),
+        p, objective_coefficients=np.append(p.objective_coefficients, cost),
         variable_lower_bounds=np.append(p.variable_lower_bounds, 0.0),
         variable_upper_bounds=np.append(p.variable_upper_bounds, np.inf),
         variable_types=np.append(p.variable_types, "C"), variable_names=[])
@@ -225,14 +235,94 @@ def _unbounded(generate, n=128):
 
 # the unbounded instance's primal ray shows only slowly in the iterates
 # (the other variables' share of the ray candidate shrinks with each
-# restart), so it is certified at a dual-infeasibility tolerance of 1e-3;
-# at 1e-4 neither package certifies it within 3,000 steps
+# restart), so it is certified at a dual-infeasibility tolerance of 1e-3
 _DETECT = {
     "infeasible": (_infeasible, "primal_infeasible", 1e-8,
                    C.CUOPT_TERIMINATION_STATUS_INFEASIBLE),
     "unbounded": (_unbounded, "dual_infeasible", 1e-3,
                   C.CUOPT_TERIMINATION_STATUS_UNBOUNDED),
 }
+
+
+def _from_cuopt_tpu(prob, dual_tol=1e-3):
+    """cuopt_tpu's scaled float64 problem and initial state for `prob`
+    with infeasibility detection on, both carried over to the port, and
+    each package's major function."""
+    settings = JSettings()
+    settings.detect_infeasibility = True
+    settings.tolerances.dual_infeasible_tolerance = dual_tol
+    j_solver = J.PdlpSolver(prob, settings)
+    j_dev = J.build_device_problem(prob, j_solver.hp, jnp.float64)
+    j_state = J.initial_state(j_dev, j_solver.hp, jnp.float64)
+    t_dev = T.device_problem_from_arrays(_dev_arrays(j_dev), "cpu")
+    t_state = T.state_from_arrays(_state_arrays(j_state), "cpu")
+    cfg = T.StaticCfg(**{f.name: getattr(j_solver.cfg, f.name)
+                         for f in dataclasses.fields(j_solver.cfg)})
+    return (j_dev, j_state, J.make_major_fn(j_solver.cfg), j_solver.cfg,
+            t_dev, t_state, T.make_major_fn(cfg), cfg)
+
+
+def _gap(t, j):
+    """max |t - j| over max |j|."""
+    t, j = np.asarray(t, np.float64), np.asarray(j, np.float64)
+    return float(np.max(np.abs(t - j)) / max(np.max(np.abs(j)), 1e-300))
+
+
+def _unbounded_drift(cost, majors, dual_tol=1e-3):
+    """The unbounded LP with `cost` on its free variable, run by both
+    packages from cuopt_tpu's scaled problem and initial state, each on
+    its own iterates. Per major: x's gap to cuopt_tpu's (`_gap`), the
+    port's best ray score as a multiple of the dual-infeasibility
+    tolerance (the smaller max_primal_ray_infeasibility of the two
+    candidates `_infeasibility_flags` scores), and whether each package
+    flagged the major dual infeasible."""
+    (j_dev, j_state, j_major, _, t_dev, t_state, t_major,
+     _) = _from_cuopt_tpu(_unbounded(j_generate, cost=cost), dual_tol)
+    scores = []
+    score = T._ray_scores
+
+    def recording(*args):
+        out = score(*args)
+        scores.append(float(out["max_primal_ray_infeasibility"]))
+        return out
+
+    rows = []
+    T._ray_scores = recording
+    try:
+        for _ in range(majors):
+            scores.clear()
+            t_state, tr = t_major(t_dev, t_state)
+            j_state, jr = j_major(j_dev, j_state)
+            rows.append((_gap(t_state.x, j_state.x), min(scores) / dual_tol,
+                         bool(tr["dual_infeasible"]),
+                         bool(jr["dual_infeasible"])))
+    finally:
+        T._ray_scores = score
+    return rows
+
+
+def test_first_step_agrees_to_rounding():
+    """From one scaled problem and state, one PDHG step of each package on
+    the unbounded LP that drifted (cost -1) agrees to a few ulps: the
+    packages differ in the order of their sums, not in a formula."""
+    (j_dev, j_state, _, j_cfg, t_dev, t_state, _,
+     t_cfg) = _from_cuopt_tpu(_unbounded(j_generate, cost=-1.0))
+    js = jax.jit(lambda d, s: J._take_step(d, s, j_cfg))(j_dev, j_state)
+    ts = T._take_step(t_dev, t_state, t_cfg)
+    for name in ("x", "y", "ax", "aty", "step_size"):
+        assert _gap(getattr(ts, name), getattr(js, name)) < 1e-15, name
+    assert int(ts.total_attempts) == int(js.total_attempts)
+
+
+def test_unbounded_flag_has_a_margin():
+    """The unbounded instance's ray scores stay far from the tolerance at
+    every major while the iterates agree, so rounding cannot move the
+    major at which either package flags it (see `_unbounded`)."""
+    for k, (gap, score, t_flag, j_flag) in enumerate(
+            _unbounded_drift(-10.0, 4)):
+        assert gap < 1e-9, (k, gap)
+        assert score > 2.0 or score < 0.5, (k, score)
+        assert t_flag == j_flag, k
 
 
 def _close(a, b, rtol=1e-8, atol=1e-12):

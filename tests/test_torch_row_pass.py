@@ -152,6 +152,51 @@ def test_gate():
     assert not tf.fused_pass_supported(object(), torch.float32)
 
 
+@pytest.mark.parametrize("case", _CASES)
+def test_plan_lists_each_column_blocks_contributors(case):
+    """The partials kernel's folded tail trusts the plan: a column block
+    is complete once as many tiles as cb_offsets lists have counted into
+    it. Recount here, from the window starts alone, which tiles' windows
+    touch each column block, in tile order."""
+    t_op = _port_op(_mk(case))
+    p = tf.plan(t_op)
+    T, WB = len(t_op.row_starts), t_op.w_row // 128
+    n_blocks = -(-t_op.n_cols // 128)
+    first = np.asarray(t_op.row_starts) // 128
+    want = [[t * WB + cb - first[t] for t in range(T)
+             if first[t] <= cb < first[t] + WB] for cb in range(n_blocks)]
+    offsets = p.cb_offsets.numpy()
+    rows = p.cb_rows.numpy()
+    assert p.n_blocks == n_blocks and offsets[0] == 0
+    assert np.array_equal(np.diff(offsets), [len(w) for w in want])
+    for cb in range(n_blocks):
+        assert rows[offsets[cb]:offsets[cb + 1]].tolist() == want[cb]
+    assert np.array_equal(p.cb_of_row.numpy(),
+                          np.repeat(np.arange(n_blocks), np.diff(offsets)))
+    assert p.covered == all(want)
+    assert p.counters.dtype == torch.int32 and not p.counters.any()
+
+
+@pytest.mark.parametrize("case", _CASES)
+def test_reference_reduction_adds_in_list_order(case):
+    """The kernel sums each column block's parts one after another in
+    the plan's list order; reduce_partials_reference (index_add_ on the
+    CPU) must give exactly those bits, here summed by hand in float32."""
+    t_op = _port_op(_mk(case))
+    p = tf.plan(t_op)
+    args = [torch.as_tensor(a) for a in _inputs(*t_op.shape)]
+    _, _, parts = tf.row_pass_partials_reference(t_op, args[0], args[1],
+                                                 None, *args[2:])
+    rows = parts.reshape(-1, 128).numpy()
+    offsets, listed = p.cb_offsets.numpy(), p.cb_rows.numpy()
+    want = np.zeros((p.n_blocks, 128), np.float32)
+    for cb in range(p.n_blocks):
+        for e in range(offsets[cb], offsets[cb + 1]):
+            want[cb] += rows[listed[e]]
+    got = tf.reduce_partials_reference(t_op, parts).numpy()
+    assert np.array_equal(got, want.reshape(-1)[:t_op.n_cols])
+
+
 @pytest.mark.parametrize("mode", ["atomic", "partials"])
 def test_kernel_check_helper_on_cpu(mode):
     """The check chip_smoke.py and tests/test_torch_gpu.py run on the card,
@@ -161,4 +206,4 @@ def test_kernel_check_helper_on_cpu(mode):
     t_op = _port_op(_mk("wide"))
     out = check_row_pass(t_op, mode, row_pass_inputs(t_op, seed=1))
     assert out["ok"] and out["max_abs_err"] == 0.0
-    assert out.get("deterministic", True)
+    assert out.get("deterministic", True) and out.get("folded_exact", True)
