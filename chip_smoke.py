@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero; without a CUDA card nothing runs):
   1. device: the card's name and power limit, torch and CUDA versions,
-     and the nvcc build of cuopt_torch/csrc, with ptxas' registers,
-     shared memory and spills for each kernel instantiation (the
-     one-pass and column-split bodies must not spill);
+     the nvcc build of cuopt_torch/csrc beside the g++ build of the host
+     dual simplex (cpp/dual_simplex), with ptxas' registers, shared
+     memory and spills for each kernel instantiation (the one-pass and
+     column-split bodies must not spill);
   2. kernels: every kernel of the fused row pass against its plain
      PyTorch version on the card, in both modes, on the 50k staircase,
      its shuffled copy (reordered, with spill), degen-transport at scale
@@ -18,15 +19,27 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      W_COLUMN_SPLIT), its resident blocks per SM and its time as a share
      of the one-read bound. Times are device times: CUDA-event means over
      50 calls captured in a CUDA graph (no host launch cost);
-  3-5. solve_lp in float32 on the 50k staircase, its shuffled copy and
-     the 300k staircase: OPTIMAL, objective within 1e-3 relative of
-     scipy's HiGHS, the primal residual rechecked on the host in float64,
-     and every step attempt launched through the row-pass kernels;
+  3-5. solve_lp by PDLP alone in float32 on the 50k staircase, its
+     shuffled copy and the 300k staircase: OPTIMAL, objective within 1e-3
+     relative of scipy's HiGHS, the primal residual rechecked on the host
+     in float64, and every step attempt launched through the row-pass
+     kernels;
   6. solve_lp in float32 on degen-transport at scale 100,000, which PDLP
      does not solve in reasonable time, to a fixed 400 steps:
      ITERATION_LIMIT, finite iterates, every attempt through the
      column-split body of row_pass_partials;
-  7. profile: the 50k, the 300k and the degen-transport solves once more
+  7. concurrent (the default method: the host dual simplex races PDLP):
+     PDLP wins the 50k staircase in float32 through row_pass_atomic and
+     the simplex thread is halted and joined; the simplex wins the 2k
+     staircase inside the grace poll, to HiGHS's optimum within 1e-9; the
+     50k staircase under PDLPSolverSettings() defaults (float64);
+  8. crossover: PDLP in float32 on the 2k staircase, then the simplex
+     from its point to HiGHS's vertex within 1e-9, in fewer pivots than
+     a cold simplex;
+  9. warm start: the 50k staircase re-solved from a first solve's state
+     after its objective is scaled by 1 + 1e-3, in fewer steps than a
+     cold re-solve, every attempt through row_pass_atomic;
+  10. profile: the 50k, the 300k and the degen-transport solves once more
      under torch.profiler, for the device's busy time, its idle share,
      the row pass's share of device time and the kernels that take the
      most device time.
@@ -46,6 +59,8 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -63,6 +78,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_TIMED = 50
 DEGEN_STEPS = 400  # ten majors of 40 steps
+# PDLP's optimality tolerance before crossover (phase_crossover). On the
+# CPU, from ten float32 PDLP points of the 2k staircase each (different
+# starting points), the shared C++ crossover crashed on 8 at 1e-4 and on
+# none at 5e-5, 2e-5 or 1e-5, with 84 pivots from every 1e-5 point
+# (scripts/torch_crossover_crashes.py).
+CROSSOVER_TOL = 1e-5
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -172,10 +193,21 @@ def phase_device():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    log(f"host compiler: {gxx.stdout.splitlines()[0] if gxx.stdout else '?'}")
+    # the CUDA kernels (nvcc) and the host simplex (g++) build side by side
     t0 = time.perf_counter()
-    built = BUILDER.build("row_pass")
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
-        f"({'cached' if built is None else f'row_pass {built:.2f} s'})")
+    with ThreadPoolExecutor(2) as pool:
+        cuda_build = pool.submit(BUILDER.build, "row_pass")
+        host_build = pool.submit(BUILDER.build_simplex)
+        built, simplex_built = cuda_build.result(), host_build.result()
+
+    def took(s):
+        return "cached" if s is None else f"{s:.2f} s"
+
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, row_pass (nvcc) "
+        f"{took(built)}, simplex (g++) {took(simplex_built)}")
     for name, out in BUILDER.log.items():
         for fn, r in ptxas_report(out).items():
             log(f"  ptxas {name}: {fn}: {r['registers']} registers, "
@@ -321,13 +353,19 @@ def host_primal_residual(prob, x):
     return float(np.linalg.norm(viol)), float(np.linalg.norm(b))
 
 
-def _settings(iteration_limit):
+def _settings(iteration_limit, **kw):
+    """float32 PDLP alone (the default method, Concurrent, would race a
+    host simplex beside it)."""
+    from cuopt_torch import constants as C
     from cuopt_torch.lp.settings import PDLPSolverSettings
 
     s = PDLPSolverSettings()
     s.dtype = "float32"
+    s.method = C.CUOPT_METHOD_PDLP
     s.iteration_limit = iteration_limit
     s.log_to_console = False
+    for k, v in kw.items():
+        setattr(s, k, v)
     return s
 
 
@@ -350,6 +388,7 @@ def _solve(name, prob, s, kernels):
     launches = {k.name: k.launches for k in pf.KERNELS}
     plain = pf.PlainCount.calls
     info = sol.get_additional_termination_information()
+    info["wall_s"] = wall
     steps, attempts = info["iterations"], info["attempts"]
     loop_s = info["solve_loop_s"]
     dev = getattr(prob, "_cuopt_torch_device_cache", (None, None))[1]
@@ -380,7 +419,7 @@ def _solve(name, prob, s, kernels):
 def phase_solve(name, prob, n, kernels):
     """A staircase solved to optimality: checks status, objective and the
     host residual besides what `_solve` checks. Returns the kernels'
-    launch counts of this solve."""
+    launch counts of this solve and its termination information."""
     s = _settings(20000)
     sol, info, launches = _solve(name, prob, s, kernels)
     status = sol.get_termination_reason()
@@ -403,7 +442,7 @@ def phase_solve(name, prob, n, kernels):
     log(f"[solve] {name}: host float64 primal residual {res:.4e} "
         f"(limit {limit:.4e})")
     require(res <= limit, f"{name}: primal residual {res} > {limit}")
-    return launches
+    return launches, info
 
 
 # ------------------------------------------------------------ phase 6
@@ -444,7 +483,217 @@ def phase_degen_solve(prob):
     return launches
 
 
-# ------------------------------------------------------------ phase 7
+# --------------------------------------------------------- phases 7-9
+def highs_objective(prob):
+    """The optimum of a minimizing LP by scipy's HiGHS, float64 on the
+    host."""
+    import scipy.sparse as sp
+    from scipy.optimize import linprog
+
+    require(not prob.maximize, "highs_objective takes a minimizing LP")
+    A = sp.csr_matrix((prob.values, prob.indices, prob.offsets),
+                      shape=(prob.n_constraints, prob.n_variables))
+    lo, hi = prob.constraint_lower_bounds, prob.constraint_upper_bounds
+    fl, fu = np.isfinite(lo), np.isfinite(hi)
+    res = linprog(prob.objective_coefficients,
+                  A_ub=sp.vstack([A[fu], -A[fl]]),
+                  b_ub=np.concatenate([hi[fu], -lo[fl]]),
+                  bounds=np.column_stack([prob.variable_lower_bounds,
+                                          prob.variable_upper_bounds]),
+                  method="highs")
+    require(res.status == 0, f"HiGHS failed: {res.message}")
+    return float(res.fun) + prob.objective_offset
+
+
+def _race_line(name, info, wall):
+    race = info["race"]
+    log(f"[concurrent] {name}: solved by {info['solved_by']}, grace "
+        f"{race['grace_s']:.1f} s (waited {race['grace_waited_s']:.4f} s), "
+        f"simplex status {race['simplex_status']} after "
+        f"{race['simplex_iterations']} pivots, halt latency "
+        f"{race['halt_latency_s']:.4f} s, wall {wall:.3f} s")
+
+
+def _no_simplex_thread_left(name):
+    import threading
+
+    from cuopt_torch.dual_simplex.concurrent import SIMPLEX_THREAD
+
+    left = [t for t in threading.enumerate() if t.name == SIMPLEX_THREAD]
+    require(not left, f"{name}: a simplex thread outlived the race")
+
+
+def phase_concurrent(p50, p2k, highs_2k, alone_rate):
+    """The default method, Concurrent: the host dual simplex races PDLP.
+    (a) staircase-50k in float32: PDLP wins through row_pass_atomic, the
+    simplex is halted and joined; its loop rate beside the PDLP-alone rate
+    of phase 3. (b) the 2k staircase: the simplex wins inside the grace
+    poll, to HiGHS's optimum within 1e-9. (c) staircase-50k under
+    PDLPSolverSettings() defaults (float64, the unfused step). Returns the
+    kernels' launch counts over the three solves."""
+    import torch
+
+    from cuopt_torch import constants as C
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+    from cuopt_torch.lp.solve import solve_lp
+
+    total = Counter()
+    name = "concurrent staircase-50k"
+    sol, info, launches = _solve(
+        name, p50, _settings(20000, method=C.CUOPT_METHOD_CONCURRENT),
+        ("row_pass_atomic",))
+    total.update(launches)
+    _race_line(name, info, info["wall_s"])
+    obj = sol.get_primal_objective()
+    rel = abs(obj - HIGHS_OBJ[50_000]) / abs(HIGHS_OBJ[50_000])
+    rate = info["loop_steps"] / info["solve_loop_s"]
+    log(f"[concurrent] {name}: objective {obj:.6f} (rel err {rel:.2e}), "
+        f"PDLP loop {rate:.1f} steps/s raced against {alone_rate:.1f} "
+        f"alone (phase 3), {info['iterations']} steps")
+    require(sol.get_termination_reason() == "Optimal", f"{name}: status")
+    require(info["solved_by"] == "pdlp", f"{name}: {info['solved_by']} won")
+    require(rel <= OBJ_RTOL, f"{name}: objective {obj}")
+    require("pdlp_error" not in info, f"{name}: {info.get('pdlp_error')}")
+    require(info["race"]["simplex_status"] ==
+            C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT,
+            f"{name}: simplex ended with {info['race']['simplex_status']}")
+    _no_simplex_thread_left(name)
+
+    name = "concurrent staircase-2k"
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    sol = solve_lp(p2k, _settings(20000, method=C.CUOPT_METHOD_CONCURRENT))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = sol.get_additional_termination_information()
+    _race_line(name, info, wall)
+    obj = sol.get_primal_objective()
+    rel = abs(obj - highs_2k) / abs(highs_2k)
+    launches = {k.name: k.launches for k in pf.KERNELS}
+    total.update(launches)
+    log(f"[concurrent] {name}: objective {obj:.12f} (HiGHS {highs_2k:.12f}, "
+        f"rel err {rel:.2e}), launches {launches}")
+    require(sol.get_termination_reason() == "Optimal", f"{name}: status")
+    require(info["solved_by"] == "dual_simplex",
+            f"{name}: {info['solved_by']} won")
+    require(rel <= 1e-9, f"{name}: objective {obj} vs HiGHS {highs_2k}")
+    _no_simplex_thread_left(name)
+
+    name = "concurrent staircase-50k float64 defaults"
+    s = PDLPSolverSettings()
+    s.log_to_console = False
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    sol = solve_lp(dataclasses.replace(p50), s)  # a copy: its own cache
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = sol.get_additional_termination_information()
+    _race_line(name, info, wall)
+    obj = sol.get_primal_objective()
+    rel = abs(obj - HIGHS_OBJ[50_000]) / abs(HIGHS_OBJ[50_000])
+    launches = {k.name: k.launches for k in pf.KERNELS}
+    total.update(launches)
+    log(f"[concurrent] {name}: {sol.get_termination_reason()}, "
+        f"{info['iterations']} steps, objective {obj:.6f} (rel err "
+        f"{rel:.2e}), launches {launches} (float64 takes the unfused step)")
+    require(sol.get_termination_reason() == "Optimal", f"{name}: status")
+    require(rel <= OBJ_RTOL, f"{name}: objective {obj}")
+    _no_simplex_thread_left(name)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_crossover(p2k, highs_2k):
+    """PDLP in float32 on the block-band operator, then crossover to a
+    vertex on the host: HiGHS's optimum within 1e-9, in fewer pivots than
+    a cold simplex. Returns the kernels' launch counts.
+
+    PDLP solves to CROSSOVER_TOL, not the default 1e-4: from most float32
+    points at 1e-4 the shared C++ crossover crashes the process (its
+    crash basis fails to factorize and simplex.cpp:99 -> :885 reads x_B
+    before it exists; ROADMAP Queue 3)."""
+    from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
+    from cuopt_torch.utils.timer import Timer
+
+    name = "crossover staircase-2k"
+    s = _settings(20000, operator_kind="blockband", crossover=True)
+    s.set_optimality_tolerance(CROSSOVER_TOL)
+    sol, info, launches = _solve(name, p2k, s, ("row_pass_atomic",))
+    t0 = time.perf_counter()
+    cold = solve_lp_simplex(p2k, s, Timer())
+    cold_s = time.perf_counter() - t0
+    obj = sol.get_primal_objective()
+    rel = abs(obj - highs_2k) / abs(highs_2k)
+    log(f"[crossover] {name}: {info['solved_by']}, {info['iterations']} PDLP "
+        f"steps, {info.get('crossover_iterations')} crossover pivots against "
+        f"{cold['iterations']} for a cold simplex ({cold_s:.3f} s), vertex "
+        f"objective {obj:.12f} (rel err {rel:.2e}), wall "
+        f"{info['wall_s']:.3f} s")
+    require(info["solved_by"] == "pdlp+crossover",
+            f"{name}: solved by {info['solved_by']}")
+    require(rel <= 1e-9, f"{name}: objective {obj} vs HiGHS {highs_2k}")
+    require(info["crossover_iterations"] < cold["iterations"],
+            f"{name}: crossover took {info['crossover_iterations']} pivots")
+    return launches
+
+
+def phase_warm_start(p50):
+    """staircase-50k solved cold, its objective scaled by 1 + 1e-3 (the
+    scaling depends only on A), then re-solved from the first solve's
+    warm-start data and cold: both OPTIMAL within 1e-4 of each other, the
+    warm re-solve in fewer new steps, every attempt through
+    row_pass_atomic. Returns the kernels' launch counts."""
+    import torch
+
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp.solve import solve_lp
+
+    total = Counter()
+    kernels = ("row_pass_atomic",)
+    first, _, launches = _solve("warm start: staircase-50k", p50,
+                                _settings(20000), kernels)
+    total.update(launches)
+    ws = first.get_pdlp_warm_start_data()
+    moved = dataclasses.replace(
+        p50, objective_coefficients=p50.objective_coefficients * (1 + 1e-3))
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    warm = solve_lp(moved, _settings(20000, warm_start_data=ws))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in pf.KERNELS}
+    total.update(launches)
+    info = warm.get_additional_termination_information()
+    steps = info["iterations"] - ws.total_pdlp_iterations
+    attempts = info["attempts"] - ws.total_pdhg_iterations
+    log(f"[warm start] warm re-solve: {warm.get_termination_reason()}, "
+        f"{steps} new steps, {attempts} new attempts (counters restored at "
+        f"{ws.total_pdlp_iterations} / {ws.total_pdhg_iterations}), wall "
+        f"{wall:.3f} s, launches {launches}, plain-version calls "
+        f"{pf.PlainCount.calls}")
+    require(pf.PlainCount.calls == 0, "warm re-solve: plain row pass ran")
+    require(launches["row_pass_atomic"] == attempts,
+            f"warm re-solve: {launches['row_pass_atomic']} launches for "
+            f"{attempts} attempts")
+    cold, cold_info, launches = _solve("warm start: cold re-solve", moved,
+                                       _settings(20000), kernels)
+    total.update(launches)
+    a, b = warm.get_primal_objective(), cold.get_primal_objective()
+    log(f"[warm start] warm {steps} steps against cold "
+        f"{cold_info['iterations']}; objectives {a:.6f} / {b:.6f} (rel "
+        f"{abs(a - b) / abs(b):.2e})")
+    require(warm.get_termination_reason() == "Optimal" and
+            cold.get_termination_reason() == "Optimal",
+            "warm start: a re-solve is not OPTIMAL")
+    require(abs(a - b) <= 1e-4 * abs(b), f"warm start: objectives {a} / {b}")
+    require(0 < steps < cold_info["iterations"],
+            f"warm start: {steps} warm steps against "
+            f"{cold_info['iterations']} cold")
+    return total
+
+
+# ----------------------------------------------------------- phase 10
 def phase_profile(name, prob, iteration_limit=20000):
     """Where a float32 solve's time goes: the solve runs once unprofiled
     (device problem cached, kernels built), then again under
@@ -522,19 +771,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[kernels] done at {time.perf_counter() - t_start:.1f} s")
 
-    total = {k.name: 0 for k in pf.KERNELS}
+    total = Counter()  # launches over every solve of the main path
+    rates = {}
     for name, prob, n, kernels in (
             ("staircase-50k", p50, 50_000, ("row_pass_atomic",)),
             ("shuffled-50k", p50s, 50_000, ("row_pass_atomic",)),
             ("staircase-300k", p300, 300_000, ("row_pass_partials",))):
-        launches = phase_solve(name, prob, n, kernels)
-        for k, v in launches.items():
-            total[k] += v
+        launches, info = phase_solve(name, prob, n, kernels)
+        total.update(launches)
+        rates[name] = info["loop_steps"] / info["solve_loop_s"]
         log(f"[solve] {name} done at {time.perf_counter() - t_start:.1f} s")
-    for k, v in phase_degen_solve(pd).items():
-        total[k] += v
+    total.update(phase_degen_solve(pd))
     log(f"[solve] degen-transport-100k done at "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    p2k = staircase(2000)
+    highs_2k = highs_objective(p2k)
+    total.update(phase_concurrent(p50, p2k, highs_2k, rates["staircase-50k"]))
+    log(f"[concurrent] done at {time.perf_counter() - t_start:.1f} s")
+    total.update(phase_crossover(p2k, highs_2k))
+    log(f"[crossover] done at {time.perf_counter() - t_start:.1f} s")
+    total.update(phase_warm_start(p50))
+    log(f"[warm start] done at {time.perf_counter() - t_start:.1f} s")
     for k in pf.KERNELS:
         require(total[k.name] > 0,
                 f"{k.name} was never launched on the main path")

@@ -28,6 +28,7 @@ import dataclasses
 import time
 from dataclasses import dataclass
 from functools import partial
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -798,18 +799,37 @@ def state_from_arrays(arrays: dict, device) -> SolverState:
     return SolverState(**kw)
 
 
-def initial_state(dev: DeviceProblem, hp: PdlpHyperParams,
-                  dtype) -> SolverState:
+def initial_state(dev: DeviceProblem, hp: PdlpHyperParams, dtype,
+                  x0=None, y0=None) -> SolverState:
     """Initial iterates, step size and primal weight (reference
     pdlp.cu compute_initial_step_size / compute_initial_primal_weight:
     eta0 = scaling / max|A|; omega0 = importance * ||c||/||b_combined||,
-    both on the scaled problem for the default Stable2 config)."""
+    both on the scaled problem for the default Stable2 config). x0 / y0
+    are optional user-space starting points (settings
+    initial_primal_solution / initial_dual_solution)."""
     n, m = dev.op.shape
     device = dev.c.device
-    x = torch.zeros(m, dtype=dtype, device=device)
-    if hp.project_initial_primal:
-        x = torch.clamp(x, dev.lv, dev.uv)
-    y = torch.zeros(n, dtype=dtype, device=device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                               device=device)
+
+    if x0 is None:
+        x = torch.zeros(m, dtype=dtype, device=device)
+        if hp.project_initial_primal:
+            x = torch.clamp(x, dev.lv, dev.uv)
+    else:
+        x = t(x0)
+        if dev.col_perm is not None:  # user space -> permuted space
+            x = x[dev.col_perm]
+        x = x / dev.col_scale
+    if y0 is None:
+        y = torch.zeros(n, dtype=dtype, device=device)
+    else:
+        y = t(y0)
+        if dev.row_perm is not None:
+            y = y[dev.row_perm]
+        y = y / dev.row_scale
     ax = dev.op.matvec(x)
     aty = dev.op.rmatvec(y)
 
@@ -905,7 +925,11 @@ class PdlpSolver:
         )
         self.log = get_logger()
 
-    def run(self, timer: Timer | None = None):
+    def run(self, timer: Timer | None = None, stop=None):
+        """Solve; returns the raw solution dict. `stop`, when given, is a
+        predicate checked between majors, where the time limit is: once
+        it returns True the run ends with status CONCURRENT_LIMIT (the
+        concurrent race's halt, dual_simplex/concurrent.py)."""
         maybe_start_profile()
         settings = self.settings
         prob = self.prob
@@ -914,7 +938,14 @@ class PdlpSolver:
         t_run0 = time.perf_counter()
         dev = build_device_problem(prob, self.hp, self.dtype,
                                    settings.operator_kind, self.device)
-        state = initial_state(dev, self.hp, self.dtype)
+        if settings.warm_start_data is not None:
+            from cuopt_torch.lp.warm_start import restore_state
+
+            state = restore_state(settings.warm_start_data, dev, self.dtype)
+        else:
+            state = initial_state(dev, self.hp, self.dtype,
+                                  settings.initial_primal_solution,
+                                  settings.initial_dual_solution)
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
         use_avg = False
@@ -1008,6 +1039,9 @@ class PdlpSolver:
             if timer.expired():
                 status = C.CUOPT_TERIMINATION_STATUS_TIME_LIMIT
                 break
+            if stop is not None and stop():
+                status = C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
+                break
         which = "avg" if use_avg else "cur"
         info = {k: float(v) for k, v in report[f"info_{which}"].items()}
         sol = {
@@ -1037,8 +1071,23 @@ class PdlpSolver:
                 and best_primal[0] < sol["primal_objective"]:
             sol["primal_solution"] = best_primal[1]
             sol["primal_objective"] = best_primal[0]
+        # the full internal state for re-solves (reference pdlp.cu:470-488),
+        # captured lazily: it copies ten vectors off the device and most
+        # solves never use it (Solution.get_pdlp_warm_start_data). The
+        # closure holds the state and the two scale vectors, not the slabs.
+        scales = SimpleNamespace(row_scale=dev.row_scale,
+                                 col_scale=dev.col_scale)
+
+        def _lazy_warm_start(scales=scales, state=state):
+            from cuopt_torch.lp.warm_start import capture_warm_start
+
+            return capture_warm_start(scales, state)
+
+        sol["warm_start_data_fn"] = _lazy_warm_start
         # solution vectors live in permuted space when the operator was
-        # bandwidth-reordered: gather back to user order
+        # bandwidth-reordered: gather back to user order (the warm-start
+        # data stays in permuted space: it is restored against the same
+        # deterministic permutation of the same matrix)
         if dev.inv_col_perm is not None:
             inv_cp = _np(dev.inv_col_perm)
             inv_rp = _np(dev.inv_row_perm)

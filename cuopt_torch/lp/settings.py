@@ -2,8 +2,8 @@
 
 Mirrors the reference `pdlp_solver_settings_t`
 (cpp/include/cuopt/linear_programming/pdlp/solver_settings.hpp:70, tolerance
-defaults :179-188). The string-keyed registry, MIP settings and warm
-start wait for the slices that port those solvers (ROADMAP Queue 1).
+defaults :179-188). The string-keyed registry and MIP settings wait for
+the slices that port those solvers (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -46,6 +46,22 @@ class PDLPSolverSettings:
     # port-specific knobs (no reference equivalent)
     dtype: str = "float64"  # compute dtype: float64 | float32
     operator_kind: str = "auto"  # auto | dense | ell | csr | blockband | bandperm
+    # warm start (reference solver_settings.hpp:138-163): a prior solve's
+    # PdlpWarmStartData, or user-space starting points
+    warm_start_data: object = None
+    initial_primal_solution: object = None
+    initial_dual_solution: object = None
+
+    def set_pdlp_warm_start_data(self, data) -> None:
+        """Feed a prior solve's full internal state back in (reference
+        solver_settings.hpp:138-163)."""
+        self.warm_start_data = data
+
+    def set_initial_primal_solution(self, x) -> None:
+        self.initial_primal_solution = x
+
+    def set_initial_dual_solution(self, y) -> None:
+        self.initial_dual_solution = y
 
     def set_optimality_tolerance(self, eps: float):
         """Set all absolute+relative optimality tolerances at once

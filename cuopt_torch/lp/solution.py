@@ -3,7 +3,11 @@
 Mirrors the reference `optimization_problem_solution_t`
 (cpp/include/cuopt/linear_programming/pdlp/solver_solution.hpp:55, status
 enum :37) and the Python `Solution` wrapper
-(python/cuopt/cuopt/linear_programming/solution/solution.py).
+(python/cuopt/cuopt/linear_programming/solution/solution.py). Besides the
+reference's keys, the termination information carries the port's timing
+split (compile_s, solve_loop_s, loop_steps, loop_attempts), a crossover's
+pivots, the concurrent race's record ("race") and, when the PDLP leg of a
+race failed, its error ("pdlp_error").
 """
 
 from __future__ import annotations
@@ -74,8 +78,21 @@ class Solution:
             "linf_primal_residual", "linf_dual_residual",
             "iterations", "attempts", "solve_time", "solved_by",
             "compile_s", "solve_loop_s", "loop_steps", "loop_attempts",
+            "crossover_iterations", "race", "pdlp_error",
         )
         return {k: self._raw[k] for k in keys if k in self._raw}
+
+    def get_pdlp_warm_start_data(self):
+        """Full PDLP internal state for re-solves (reference
+        pdlp_warm_start_data.hpp; settable via
+        PDLPSolverSettings.set_pdlp_warm_start_data), captured on first
+        access."""
+        ws = self._raw.get("warm_start_data")
+        if ws is None:
+            fn = self._raw.get("warm_start_data_fn")
+            if fn is not None:
+                ws = self._raw["warm_start_data"] = fn()
+        return ws
 
     def get_vars(self) -> dict:
         x = self._raw["primal_solution"]

@@ -2,10 +2,14 @@
 
 Counterpart of cuopt_tpu/lp/solve.py, which mirrors reference
 cpp/src/linear_programming/solve.cu: `solve_lp` :554, method dispatch
-`solve_lp_with_method` :539 {Concurrent, PDLP, DualSimplex}. This package
-has no dual simplex yet (ROADMAP Queue 1 item 7), so Concurrent runs PDLP
-alone and says so, as cuopt_tpu does when its simplex library is absent;
-DualSimplex and crossover raise.
+`solve_lp_with_method` :539 {Concurrent, PDLP, DualSimplex}:
+
+  - DualSimplex solves on the host with the native dual simplex;
+  - Concurrent races that simplex against PDLP on `device`
+    (dual_simplex/concurrent.py, reference solve.cu:467-537);
+  - PDLP runs alone on `device`, then crosses over to a vertex when
+    `settings.crossover` is set and PDLP ended OPTIMAL (reference
+    solve.cu:383-441).
 """
 
 from __future__ import annotations
@@ -13,14 +17,13 @@ from __future__ import annotations
 import numpy as np
 
 from cuopt_torch import constants as C
+from cuopt_torch.dual_simplex import run_concurrent_lp, solve_with_dual_simplex
+from cuopt_torch.dual_simplex.crossover import crossover
 from cuopt_torch.lp.pdlp import PdlpSolver
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.lp.solution import Solution
 from cuopt_torch.utils.logger import get_logger, solve_log_context
 from cuopt_torch.utils.timer import Timer
-
-_NO_SIMPLEX = ("cuopt_torch has no dual simplex or crossover yet "
-               "(ROADMAP Queue 1 item 7)")
 
 
 def _trivial_empty_solution(prob, status=None):
@@ -49,8 +52,9 @@ def _trivial_empty_solution(prob, status=None):
 
 def solve_lp(prob, settings: PDLPSolverSettings | None = None,
              device="cuda") -> Solution:
-    """Solve an LP by PDLP on `device` ("cuda" unless the caller asks for
-    "cpu"; without a card a CUDA solve raises)."""
+    """Solve an LP by `settings.method`. PDLP runs on `device` ("cuda"
+    unless the caller asks for "cpu"; without a card a PDLP or concurrent
+    solve on "cuda" raises); the dual simplex runs on the host."""
     settings = settings or PDLPSolverSettings()
     log = get_logger()
     with solve_log_context(settings.log_file or None,
@@ -61,13 +65,17 @@ def solve_lp(prob, settings: PDLPSolverSettings | None = None,
             # Trivial/empty problems: solved in closed form (bounds only).
             sol = Solution(prob, _solve_no_constraints(prob))
         else:
-            if settings.method == C.CUOPT_METHOD_DUAL_SIMPLEX or \
-                    settings.crossover:
-                raise NotImplementedError(_NO_SIMPLEX)
-            if settings.method == C.CUOPT_METHOD_CONCURRENT:
-                log.info("Concurrent: no dual simplex in cuopt_torch yet; "
-                         "running PDLP alone")
-            sol = Solution(prob, PdlpSolver(prob, settings, device).run(timer))
+            method = settings.method
+            if method == C.CUOPT_METHOD_DUAL_SIMPLEX:
+                raw = solve_with_dual_simplex(prob, settings, timer)
+            elif method == C.CUOPT_METHOD_CONCURRENT:
+                raw = run_concurrent_lp(prob, settings, timer, device)
+            else:
+                raw = PdlpSolver(prob, settings, device).run(timer)
+                if settings.crossover and \
+                        raw["status"] == C.CUOPT_TERIMINATION_STATUS_OPTIMAL:
+                    raw = crossover(prob, raw, settings, timer)
+            sol = Solution(prob, raw)
         if settings.solution_file:
             sol.write_to_sol_file(settings.solution_file)
         info = sol.get_additional_termination_information()

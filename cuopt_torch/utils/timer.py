@@ -1,7 +1,8 @@
 """Solve timer, mirroring reference cpp/src/utilities/timer.hpp (timer_t:26).
 
 The timer carries the global time limit for a solve and answers
-"has it expired" for cooperative checks at major iterations.
+"how much is left" / "has it expired" for cooperative checks at major
+iterations.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ class Timer:
 
     def elapsed(self) -> float:
         return time.monotonic() - self.start
+
+    def remaining(self) -> float:
+        return self.time_limit - self.elapsed()
 
     def expired(self) -> bool:
         return self.elapsed() >= self.time_limit

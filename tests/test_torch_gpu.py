@@ -7,13 +7,20 @@ Run on a machine with a CUDA card:
 Without a card every test skips. Whether there is one is decided in the
 `cuda` fixture, never while the module is imported, so every pytest worker
 collects the same tests. The checks are those chip_smoke.py runs at the
-main path's shapes (cuopt_torch/kernels/checks.py), here at small ones.
+main path's shapes (cuopt_torch/kernels/checks.py), here at small ones,
+and the concurrent race and a warm re-solve run their PDLP through them.
 """
+
+import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
+import cuopt_torch.dual_simplex.concurrent as concurrent
+from cuopt_torch import constants as C
 from cuopt_torch.kernels.checks import check_row_pass, row_pass_inputs
 from cuopt_torch.lp import pdhg_fused as pf
 from cuopt_torch.lp.settings import PDLPSolverSettings
@@ -165,6 +172,7 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     s = PDLPSolverSettings()
     s.log_to_console = False
     s.dtype = "float32"
+    s.method = C.CUOPT_METHOD_PDLP  # the default races a host simplex
     pf.reset_counts()
     sol = solve_lp(prob, s, device=cuda)
     info = sol.get_additional_termination_information()
@@ -173,6 +181,66 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     assert pf.PlainCount.calls == 0
     ref = PDLPSolverSettings()
     ref.log_to_console = False
+    ref.method = C.CUOPT_METHOD_PDLP
     want = solve_lp(prob, ref, device="cpu").get_primal_objective()
     got = sol.get_primal_objective()
     assert abs(got - want) <= 1e-3 * (1 + abs(want)), (got, want)
+
+
+def _f32_pdlp_settings(**kw):
+    s = PDLPSolverSettings()
+    s.log_to_console = False
+    s.dtype = "float32"
+    s.method = C.CUOPT_METHOD_PDLP
+    for k, v in kw.items():
+        setattr(s, k, v)
+    return s
+
+
+def test_race_against_a_blocked_simplex_on_the_card(cuda, monkeypatch):
+    """The concurrent race with a simplex leg that blocks until halted:
+    PDLP wins on the card, every attempt through the kernel, and the
+    simplex thread is halted and joined."""
+    seen = {}
+
+    def blocked(prob, settings, timer, halt=None, **kw):
+        seen["thread"] = threading.current_thread()
+        while not halt.contents.value:
+            time.sleep(0.001)
+        return {"status": C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT,
+                "iterations": 0}
+
+    monkeypatch.setattr(concurrent, "solve_lp_simplex", blocked)
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    s = _f32_pdlp_settings(method=C.CUOPT_METHOD_CONCURRENT, time_limit=5.0)
+    pf.reset_counts()
+    sol = solve_lp(prob, s, device=cuda)
+    info = sol.get_additional_termination_information()
+    assert sol.get_termination_reason() == "Optimal"
+    assert info["solved_by"] == "pdlp"
+    assert pf.ROW_PASS_ATOMIC.launches == info["attempts"] > 0
+    assert pf.PlainCount.calls == 0
+    assert info["race"]["simplex_status"] == \
+        C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
+    assert not seen["thread"].is_alive()
+
+
+def test_warm_resolve_runs_every_attempt_through_the_kernel(cuda):
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    first = solve_lp(prob, _f32_pdlp_settings(), device=cuda)
+    ws = first.get_pdlp_warm_start_data()
+    moved = dataclasses.replace(
+        prob, objective_coefficients=prob.objective_coefficients * 1.001)
+    pf.reset_counts()
+    warm = solve_lp(moved, _f32_pdlp_settings(warm_start_data=ws),
+                    device=cuda)
+    info = warm.get_additional_termination_information()
+    assert warm.get_termination_reason() == "Optimal"
+    assert pf.ROW_PASS_ATOMIC.launches == \
+        info["attempts"] - ws.total_pdhg_iterations > 0
+    assert pf.PlainCount.calls == 0
+    cold = solve_lp(moved, _f32_pdlp_settings(), device=cuda)
+    a, b = warm.get_primal_objective(), cold.get_primal_objective()
+    assert abs(a - b) <= 1e-3 * (1 + abs(b)), (a, b)
+    assert info["iterations"] - ws.total_pdlp_iterations < \
+        cold.get_nb_iterations()

@@ -21,9 +21,10 @@ torch.set_num_threads(1)
 SOURCE = Path(pf.__file__).resolve().parent.parent / "csrc" / "row_pass.cu"
 
 
-def _prototypes() -> dict:
-    """{name: (return type, [parameter types])} of the extern "C" block."""
-    src = SOURCE.read_text()
+def _prototypes(source: Path = SOURCE) -> dict:
+    """{name: (return type, [parameter types])} of the functions defined
+    at the top level of `source`'s extern "C" block."""
+    src = source.read_text()
     block = src[src.index('extern "C" {'):]
     block = re.sub(r"//[^\n]*", "", block)
     out = {}
@@ -33,8 +34,9 @@ def _prototypes() -> dict:
         types = []
         for p in params.split(","):
             p = " ".join(p.split())
-            # drop the parameter's name, keep its type
-            types.append(re.sub(r"\s*\b\w+$", "", p).replace(" *", "*"))
+            if p:
+                # drop the parameter's name, keep its type
+                types.append(re.sub(r"\s*\b\w+$", "", p).replace(" *", "*"))
         out[name] = (" ".join(ret.split()), types)
     return out
 

@@ -507,14 +507,27 @@ def test_device_caches_stay_apart():
 
 
 def test_methods_without_simplex():
+    """The methods that once ran without a simplex in the port: DualSimplex
+    and crossover raised, Concurrent ran PDLP alone. Now each reaches the
+    simplex's vertex optimum (tests/test_torch_concurrent.py and
+    tests/test_torch_dual_simplex.py hold them against cuopt_tpu)."""
     prob = t_generate(128, 128, 4, seed=1, band=32)
-    for kw in (dict(method=C.CUOPT_METHOD_DUAL_SIMPLEX),
-               dict(crossover=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            t_solve_lp(prob, _settings(TSettings, 1e-4, **kw), device="cpu")
-    s = _settings(TSettings, 1e-4, method=C.CUOPT_METHOD_CONCURRENT)
-    assert t_solve_lp(prob, s, device="cpu").get_termination_reason() == \
-        "Optimal"
+    solved_by = {}
+    for name, kw in (("dual simplex",
+                      dict(method=C.CUOPT_METHOD_DUAL_SIMPLEX)),
+                     ("crossover", dict(crossover=True)),
+                     ("concurrent", dict(method=C.CUOPT_METHOD_CONCURRENT))):
+        sol = t_solve_lp(prob, _settings(TSettings, 1e-4, **kw),
+                         device="cpu")
+        assert sol.get_termination_reason() == "Optimal", name
+        info = sol.get_additional_termination_information()
+        solved_by[name] = (info["solved_by"], sol.get_primal_objective())
+    # the simplex wins the race on an LP this small
+    assert [solved_by[k][0] for k in sorted(solved_by)] == \
+        ["dual_simplex", "pdlp+crossover", "dual_simplex"]
+    vertex = solved_by["dual simplex"][1]
+    for name, (_, obj) in solved_by.items():
+        assert abs(obj - vertex) <= 1e-9 * abs(vertex), name
 
 
 def test_no_constraints_matches():
