@@ -39,10 +39,33 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
   9. warm start: the 50k staircase re-solved from a first solve's state
      after its objective is scaled by 1 + 1e-3, in fewer steps than a
      cold re-solve, every attempt through row_pass_atomic;
-  10. profile: the 50k, the 300k and the degen-transport solves once more
-     under torch.profiler, for the device's busy time, its idle share,
-     the row pass's share of device time and the kernels that take the
-     most device time.
+  10. profile: the 50k, the 300k and the degen-transport solves once more,
+     to six majors, under torch.profiler, for the device's busy time, its
+     idle share, the row pass's share of device time and the kernels that
+     take the most device time;
+  11. batch LP, float64: eight members of the 50k staircase (bounds moved
+     on 1% of the columns, one sparsity pattern) by batch_solve as one
+     stacked block-band program: each member OPTIMAL within 1e-6 of the
+     objective and 2% of the steps of the same member solved alone; and
+     eight of the 1k staircase as one stacked dense program: OPTIMAL
+     within the solves' 1e-4. In both, three batched majors from a shared
+     state take the same attempts as each member's solo majors, x within
+     1e-9; the batch's member-steps/s printed beside the solo rate;
+  12. exact MIPs: the knapsack and twelve binaries by solve_mip, OPTIMAL
+     at the brute-force optimum, and the twelve binaries by
+     BranchAndBound on PDLP nodes, with at least one frontier of two or
+     more nodes stacked into one batched program on the card;
+  13-14. solve_mip with its defaults on the mixed staircase MIP: at the
+     largest n of 5,000, 4,000 and 3,000 whose root the host simplex
+     solves inside its budget (root, cuts and nodes by simplex; 30 s
+     limit), and at n = 50,000 (root, LP completions and nodes by PDLP on
+     the card; 60 s limit). The 3k solve must find an incumbent; the 50k
+     one may end at its limit without one (PERF.md, section 6). An incumbent
+     is rechecked on the host in float64 and must not lie below the bound;
+     the bound must not pass x_hat's objective either; the tree must take
+     a node, the FJ climbers must step on the card with no heuristic
+     error, and the wall must stay within the limit + 20 s. One FJ chunk
+     at 50k is then timed on its own (wall and CUDA events).
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -58,6 +81,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -78,6 +102,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_TIMED = 50
 DEGEN_STEPS = 400  # ten majors of 40 steps
+PROFILE_STEPS = 240  # six majors
 # PDLP's optimality tolerance before crossover (phase_crossover). On the
 # CPU, from ten float32 PDLP points of the 2k staircase each (different
 # starting points), the shared C++ crossover crashed on 8 at 1e-4 and on
@@ -377,6 +402,7 @@ def _solve(name, prob, s, kernels):
     import torch
 
     from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp import pdlp
     from cuopt_torch.lp.solve import solve_lp
 
     torch.cuda.reset_peak_memory_stats()
@@ -391,7 +417,7 @@ def _solve(name, prob, s, kernels):
     info["wall_s"] = wall
     steps, attempts = info["iterations"], info["attempts"]
     loop_s = info["solve_loop_s"]
-    dev = getattr(prob, "_cuopt_torch_device_cache", (None, None))[1]
+    dev = pdlp.cached_device_problem(prob)
     op = dev.op if dev is not None else None
     slab_bytes = op.row_slabs.numel() * 4 if hasattr(op, "row_slabs") \
         else None
@@ -456,12 +482,14 @@ def phase_degen_solve(prob):
     """degen-transport-100k to DEGEN_STEPS steps: ITERATION_LIMIT, finite
     iterates, every attempt through row_pass_partials. Returns the
     kernels' launch counts of this solve."""
+    from cuopt_torch.lp import pdlp
+
     sol, info, launches = _solve("degen-transport-100k", prob,
                                  _settings(DEGEN_STEPS),
                                  ("row_pass_partials",))
     # the layout's price: the slabs against a float32 CSR copy (values,
     # int32 column indices and row offsets)
-    n_slab = prob._cuopt_torch_device_cache[1].op.row_slabs.numel()
+    n_slab = pdlp.cached_device_problem(prob).op.row_slabs.numel()
     csr_bytes = 4 * (2 * prob.nnz + prob.n_constraints + 1)
     log(f"[solve] degen-transport-100k: {prob.nnz} nonzeros in {n_slab} "
         f"slab entries ({100 * prob.nnz / n_slab:.2f}% dense): "
@@ -515,8 +543,6 @@ def _race_line(name, info, wall):
 
 
 def _no_simplex_thread_left(name):
-    import threading
-
     from cuopt_torch.dual_simplex.concurrent import SIMPLEX_THREAD
 
     left = [t for t in threading.enumerate() if t.name == SIMPLEX_THREAD]
@@ -740,6 +766,415 @@ def phase_profile(name, prob, iteration_limit=20000):
             f"{key[:90]}")
 
 
+# ----------------------------------------------------------- phase 11
+BATCH_MEMBERS = 8
+
+
+def batch_members(base, seed=11):
+    """BATCH_MEMBERS copies of `base`, each with lv = 0.1 or uv = 0.9 on a
+    seeded 1% of its columns: generate_lp's interior point (in [0.2, 0.8])
+    stays feasible, and every member keeps base's sparsity pattern."""
+    rng = np.random.default_rng(seed)
+    n = base.n_variables
+    out = []
+    for _ in range(BATCH_MEMBERS):
+        lv = base.variable_lower_bounds.copy()
+        uv = base.variable_upper_bounds.copy()
+        cols = rng.choice(n, n // 100, replace=False)
+        low = rng.random(len(cols)) < 0.5
+        lv[cols[low]] = 0.1
+        uv[cols[~low]] = 0.9
+        out.append(dataclasses.replace(base, variable_lower_bounds=lv,
+                                       variable_upper_bounds=uv))
+    return out
+
+
+def batch_majors_check(name, members, s, majors=3):
+    """The batched major against each member's solo major from the same
+    state, `majors` times (each starting from the solo states): the same
+    step attempts, and x within 1e-9 relative. Returns the worst gap."""
+    from cuopt_torch.lp import batch as TB
+    from cuopt_torch.lp import pdlp
+
+    solver = pdlp.PdlpSolver(members[0], s, "cuda")
+    cfg = dataclasses.replace(solver.cfg, fused_kernel="off")
+    devs = [pdlp.cached_device_problem(m) for m in members]
+    states = [pdlp.initial_state(d, solver.hp, solver.dtype) for d in devs]
+    fns = TB._batched_fns(cfg, devs[0], states[0])
+    dev_b = TB._stack(devs)
+    worst = 0.0
+    for k in range(majors):
+        st_b, rep = TB._batched_major(fns, dev_b, TB._stack(states), cfg)
+        for b in range(len(members)):
+            states[b], r = pdlp.major_iteration(devs[b], states[b], cfg)
+            require(int(r["total_attempts"]) ==
+                    int(rep["total_attempts"][b]),
+                    f"{name} member {b}: attempts differ in major {k}")
+            x = states[b].x
+            gap = float((st_b["x"][b] - x).abs().max() / x.abs().max())
+            worst = max(worst, gap)
+    log(f"[batch] {name}: {majors} majors of every member batched and "
+        f"alone from the same states: the same attempts, x within "
+        f"{worst:.2e} relative")
+    require(worst <= 1e-9, f"{name}: batched x {worst:.2e} from solo")
+    return worst
+
+
+def phase_batch(name, base, kind, obj_rtol=1e-6, steps_rtol=0.02):
+    """batch_solve on BATCH_MEMBERS same-pattern members of `base` in
+    float64 (PDLPSolverSettings() defaults, PDLP alone): one stacked
+    program of operator `kind`. Each member must end OPTIMAL within
+    `steps_rtol` of the steps (None: not checked), and within `obj_rtol`
+    relative of the objective, of the same member solved alone by
+    solve_lp, and its batched majors must follow its solo ones
+    (batch_majors_check). Prints the batch's member-steps/s beside the
+    solo rate, both over the wall time of the calls."""
+    import torch
+
+    from cuopt_torch import batch_solve
+    from cuopt_torch import constants as C
+    from cuopt_torch.lp import pdlp
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+    from cuopt_torch.lp.solve import solve_lp
+
+    s = PDLPSolverSettings()
+    s.method = C.CUOPT_METHOD_PDLP
+    s.log_to_console = False
+    members = batch_members(base)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sols = batch_solve(members, s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    op = pdlp.cached_device_problem(members[0]).op
+    shape = tuple(getattr(op, "row_slabs", getattr(op, "mat", None)).shape)
+    log(f"[batch] {name}: {len(members)} members, stacked {kind} "
+        f"({len(members)}, {', '.join(map(str, shape))}), float64, wall "
+        f"{wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    steps_b = [sol.get_nb_iterations() for sol in sols]
+    solo_steps, solo_objs, solo_wall = [], [], 0.0
+    for k, (member, sol) in enumerate(zip(members, sols)):
+        require(sol.get_additional_termination_information().get(
+            "solved_by") == "pdlp_batch", f"{name}: member {k} not batched")
+        t0 = time.perf_counter()
+        solo = solve_lp(dataclasses.replace(member), s)  # its own cache
+        torch.cuda.synchronize()
+        solo_wall += time.perf_counter() - t0
+        solo_steps.append(solo.get_nb_iterations())
+        a, b = sol.get_primal_objective(), solo.get_primal_objective()
+        solo_objs.append(b)
+        rel = abs(a - b) / abs(b)
+        log(f"[batch] {name} member {k}: {sol.get_termination_reason()}, "
+            f"{steps_b[k]} steps (alone {solo_steps[k]}), objective "
+            f"{a:.9f} (alone {b:.9f}, rel {rel:.2e})")
+        require(sol.get_termination_reason() == "Optimal" and
+                solo.get_termination_reason() == "Optimal",
+                f"{name} member {k}: not OPTIMAL")
+        require(rel <= obj_rtol,
+                f"{name} member {k}: objective rel {rel:.2e}")
+        require(steps_rtol is None or abs(steps_b[k] - solo_steps[k])
+                <= steps_rtol * solo_steps[k],
+                f"{name} member {k}: {steps_b[k]} steps batched against "
+                f"{solo_steps[k]} alone")
+    # each member's answer is its own: nearer its solo objective than any
+    # other member's
+    objs_b = [sol.get_primal_objective() for sol in sols]
+    margin = min(
+        min(abs(a - solo_objs[j]) for j in range(len(sols)) if j != k)
+        / max(abs(a - solo_objs[k]), 1e-300)
+        for k, a in enumerate(objs_b))
+    log(f"[batch] {name}: every member nearer its own solo objective than "
+        f"any other member's, by a factor of at least {margin:.1f}")
+    require(margin > 1.0, f"{name}: a member's objective is nearer another "
+            f"member's solo objective than its own")
+    log(f"[batch] {name}: {sum(steps_b) / wall:.1f} member-steps/s "
+        f"batched ({sum(steps_b)} steps in {wall:.3f} s) against "
+        f"{sum(solo_steps) / solo_wall:.1f} steps/s alone "
+        f"({sum(solo_steps)} steps in {solo_wall:.3f} s), walls with "
+        f"problem builds")
+    batch_majors_check(name, members, s)
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------- phase 12
+def knapsack():
+    """max 5x0+4x1+3x2 s.t. 2x0+3x1+x2 <= 5, 4x0+x1+2x2 <= 11, x in
+    {0..3}, as a minimization (tests/torch_mip_instances.py)."""
+    from cuopt_torch.problem.data_model import OptimizationProblem
+
+    A = np.array([[2.0, 3.0, 1.0], [4.0, 1.0, 2.0]])
+    return OptimizationProblem.from_dense(
+        A, c=np.array([-5.0, -4.0, -3.0]),
+        constraint_lower=np.array([-np.inf, -np.inf]),
+        constraint_upper=np.array([5.0, 11.0]),
+        variable_lower=np.zeros(3), variable_upper=np.full(3, 3.0),
+        variable_types=np.array(["I", "I", "I"]))
+
+
+def twelve_binaries():
+    """Twelve binaries under three knapsack rows
+    (tests/torch_mip_instances.py)."""
+    from cuopt_torch.problem.data_model import OptimizationProblem
+
+    rng = np.random.default_rng(5)
+    A = rng.integers(1, 9, (3, 12)).astype(float)
+    return OptimizationProblem.from_dense(
+        A, c=-(rng.integers(3, 20, 12).astype(float)),
+        constraint_lower=np.full(3, -np.inf),
+        constraint_upper=A.sum(axis=1) * 0.4,
+        variable_lower=np.zeros(12), variable_upper=np.ones(12),
+        variable_types=np.array(["I"] * 12))
+
+
+def brute_force_min(p):
+    """The optimum of a small bounded integer MIP by enumeration."""
+    import itertools
+
+    A = p.to_dense()
+    best = np.inf
+    for x in itertools.product(*[
+            range(int(lo), int(hi) + 1) for lo, hi in
+            zip(p.variable_lower_bounds, p.variable_upper_bounds)]):
+        x = np.asarray(x, float)
+        if np.all(A @ x <= p.constraint_upper_bounds + 1e-9) and \
+                np.all(A @ x >= p.constraint_lower_bounds - 1e-9):
+            best = min(best, float(p.objective_coefficients @ x))
+    return best
+
+
+def _mip_settings(time_limit):
+    from cuopt_torch.lp.settings import MIPSolverSettings
+
+    s = MIPSolverSettings()
+    s.time_limit = time_limit
+    s.log_to_console = False
+    return s
+
+
+def phase_exact_mips():
+    """The knapsack and the twelve binaries by solve_mip on the card:
+    OPTIMAL at the brute-force optimum. Then the twelve binaries by
+    BranchAndBound with PDLP node relaxations (use_simplex=False): the
+    tree must stack at least one frontier of two or more nodes into one
+    batched program on the card, and reach the same optimum."""
+    from cuopt_torch import solve_mip
+    from cuopt_torch.lp.settings import MIPSolverSettings
+    from cuopt_torch.mip.branch_and_bound import BranchAndBound
+    from cuopt_torch.utils.timer import Timer
+
+    for name, p in (("knapsack", knapsack()),
+                    ("twelve-binaries", twelve_binaries())):
+        t0 = time.perf_counter()
+        sol = solve_mip(p, _mip_settings(60.0))
+        wall = time.perf_counter() - t0
+        best = brute_force_min(p)
+        log(f"[mip] {name}: {sol.get_termination_reason()}, objective "
+            f"{sol.get_primal_objective()} (brute force {best}), nodes "
+            f"{sol._raw['nodes']}, wall {wall:.3f} s")
+        require(sol.get_termination_reason() == "Optimal",
+                f"{name}: status {sol.get_termination_reason()}")
+        require(sol.get_primal_objective() == best, f"{name}: objective")
+        require(sol._raw["heuristic_errors"] == [],
+                f"{name}: {sol._raw['heuristic_errors']}")
+    p = twelve_binaries()
+    bnb = BranchAndBound(p, MIPSolverSettings(), device="cuda")
+    bnb.use_simplex = False
+    sizes = []
+    batch = bnb._solve_relaxations_batch
+
+    def counted(nodes, timer):
+        raws = batch(nodes, timer)
+        sizes.append(sum(r.get("solved_by") == "pdlp_batch" for r in raws))
+        return raws
+
+    bnb._solve_relaxations_batch = counted
+    t0 = time.perf_counter()
+    res = bnb.solve(Timer(120.0))
+    wall = time.perf_counter() - t0
+    log(f"[mip] twelve-binaries, PDLP nodes: status {res['status']}, "
+        f"incumbent {res['incumbent_obj']}, bound {res['best_bound']:.6f}, "
+        f"{res['nodes']} nodes, batched frontiers of {sizes} nodes, wall "
+        f"{wall:.3f} s")
+    require(res["incumbent_obj"] == brute_force_min(p),
+            "twelve-binaries, PDLP nodes: incumbent")
+    require(max(sizes, default=0) >= 2,
+            "twelve-binaries, PDLP nodes: no batched frontier of 2 or more")
+
+
+# ------------------------------------------------------- phases 13-14
+def staircase_mip(n, seed=0):
+    """generate_lp(n, n, 8, seed=123, band=256) with a seeded 30% of its
+    columns integer (their bounds are [0, 1]: binary) and row upper bounds
+    A x_hat + U(0.1, 1.0) for a point x_hat with binary entries in {0, 1}
+    and the others in U(0.2, 0.8): x_hat is feasible by construction and
+    the instance mixed. The tests define the same instance
+    (tests/torch_mip_instances.py). Returns (problem, x_hat)."""
+    p = staircase(n)
+    rng = np.random.default_rng(seed)
+    is_int = np.zeros(n, bool)
+    is_int[rng.choice(n, int(0.3 * n), replace=False)] = True
+    x_hat = np.where(is_int, rng.integers(0, 2, n), rng.uniform(0.2, 0.8, n))
+    rows = np.repeat(np.arange(n), np.diff(p.offsets))
+    act = np.bincount(rows, weights=p.values * x_hat[p.indices], minlength=n)
+    ub = act + rng.uniform(0.1, 1.0, n)
+    return dataclasses.replace(
+        p, variable_types=np.where(is_int, "I", "C").astype("U1"),
+        constraint_upper_bounds=ub, rhs=ub.copy()), x_hat
+
+
+def simplex_root_size(sizes=(5000, 4000, 3000), budget=3.0):
+    """The first n of `sizes` whose staircase MIP relaxation the host dual
+    simplex solves to OPTIMAL within `budget` seconds: the root budget
+    solve_mip gives it under a 30 s limit (0.1 x the time left, at least
+    2 s). Prints each try."""
+    from cuopt_torch import constants as C
+    from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+    from cuopt_torch.utils.timer import Timer
+
+    for n in sizes:
+        p, _ = staircase_mip(n)
+        s = PDLPSolverSettings()
+        s.time_limit = budget
+        t0 = time.perf_counter()
+        raw = solve_lp_simplex(p, s, Timer())
+        took = time.perf_counter() - t0
+        ok = raw["status"] == C.CUOPT_TERIMINATION_STATUS_OPTIMAL
+        log(f"[mip] root simplex probe, staircase-mip-{n}: status "
+            f"{raw['status']}, {raw['iterations']} pivots, {took:.3f} s "
+            f"(budget {budget} s)")
+        if ok:
+            return n
+    raise SmokeFailure(f"no staircase MIP of {sizes} has its root simplex "
+                       f"inside {budget} s")
+
+
+def host_mip_check(p, x):
+    """(max row violation, max bound violation, integral) of x for p, in
+    float64 on the host."""
+    rows = np.repeat(np.arange(p.n_constraints), np.diff(p.offsets))
+    act = np.bincount(rows, weights=p.values * x[p.indices],
+                      minlength=p.n_constraints)
+    lo, hi = p.constraint_lower_bounds, p.constraint_upper_bounds
+    row = max(float(np.max(np.where(np.isfinite(lo), lo - act, 0.0))),
+              float(np.max(np.where(np.isfinite(hi), act - hi, 0.0))), 0.0)
+    bnd = max(float(np.max(p.variable_lower_bounds - x)),
+              float(np.max(x - p.variable_upper_bounds)), 0.0)
+    is_int = p.variable_types == "I"
+    return row, bnd, bool(np.all(x[is_int] == np.round(x[is_int])))
+
+
+def phase_mip(name, p, x_hat, time_limit, want):
+    """solve_mip with the defaults (float64) and `time_limit` on the card.
+    `want` names the engines the tree must have used (its mip_stats).
+    Requires an incumbent (FEASIBLE_FOUND or OPTIMAL), feasible on the
+    host in float64 (rows within 1e-6, integral, within bounds) and at or
+    above the bound, and a finite bound at or below x_hat's objective
+    (x_hat is feasible). At least one node, at least one FJ chunk stepped
+    on the card, no heuristic error, and wall <= time_limit + 20 s.
+    Returns the solution."""
+    import torch
+
+    from cuopt_torch import solve_mip
+    from cuopt_torch.lp import pdlp
+
+    runs, lock = Counter(), threading.Lock()
+    run = pdlp.PdlpSolver.run
+
+    def counted(self, *a, **k):  # PDLP solves by device, this phase only
+        with lock:  # the FJ thread's LP completions count too
+            runs[str(self.device)] += 1
+        return run(self, *a, **k)
+
+    pdlp.PdlpSolver.run = counted
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        sol = solve_mip(p, _mip_settings(time_limit))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pdlp.PdlpSolver.run = run
+    raw = sol._raw
+    x = sol.get_primal_solution()
+    obj, bound = sol.get_primal_objective(), sol.get_solution_bound()
+    obj_hat = float(p.objective_coefficients @ x_hat)
+    fj = raw.get("fj") or {}
+    status = sol.get_termination_reason()
+    log(f"[mip] {name}: {status}, objective {obj:.9f} (x_hat "
+        f"{obj_hat:.9f}), bound {bound:.9f}, gap {raw['mip_gap']:.3e}, "
+        f"{raw['nodes']} nodes, wall {wall:.3f} s (limit {time_limit} s)")
+    log(f"[mip] {name}: tree {raw.get('mip_stats')}, PDLP solves by device "
+        f"{dict(runs)}, FJ {fj}, heuristic errors "
+        f"{raw['heuristic_errors']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    require(status in ("Optimal", "FeasibleFound"),
+            f"{name}: status {status}")
+    row, bnd, integral = host_mip_check(p, x)
+    log(f"[mip] {name}: host float64 recheck: max row violation "
+        f"{row:.3e}, max bound violation {bnd:.3e}, integral {integral}")
+    require(row <= 1e-6 and bnd <= 1e-9 and integral,
+            f"{name}: incumbent infeasible on the host")
+    require(bound <= obj + 1e-9 * max(1.0, abs(obj)),
+            f"{name}: bound {bound} above objective {obj}")
+    require(np.isfinite(bound) and bound <= obj_hat + 1e-9 * abs(obj_hat),
+            f"{name}: bound {bound} against x_hat's {obj_hat}")
+    require(raw["nodes"] >= 1, f"{name}: no node")
+    require(fj.get("chunks", 0) >= 1 and
+            str(fj.get("device", "")).startswith("cuda"),
+            f"{name}: FJ did not step on the card: {fj}")
+    require(raw["heuristic_errors"] == [],
+            f"{name}: {raw['heuristic_errors']}")
+    require(wall <= time_limit + 20.0, f"{name}: wall {wall:.1f} s")
+    for k, v in want.items():
+        require(raw["mip_stats"][k] == v,
+                f"{name}: {k} {raw['mip_stats'][k]}, want {v}")
+    on_card = sum(v for k, v in runs.items() if k.startswith("cuda"))
+    if want.get("node_lp") == "pdlp":
+        # the root, at least one LP completion, and nodes alone or batched
+        require(on_card >= 2, f"{name}: {on_card} PDLP solves on the card")
+    return sol
+
+
+def phase_fj_chunk(name, p):
+    """One FJ chunk on `p` on the card, as solve_mip's engine steps it:
+    the scoring block, the climbers, the chunk's wall (host clock around a
+    synchronised chunk), its device time (CUDA events) and its full
+    rescorings (fj_chunk), after a warm chunk."""
+    import torch
+
+    from cuopt_torch.mip.feasibility_jump import FjEngine, fj_chunk
+    from cuopt_torch.mip.solve import FJ_DECAY, FJ_MARGIN
+
+    rng = np.random.default_rng(1)
+    eng = FjEngine(p, [rng.uniform(0, 1, p.n_variables)], device="cuda",
+                   decay=FJ_DECAY, margin=FJ_MARGIN)
+    eng.step()  # warm: builds the step's CUDA graph
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    stats = {}
+    t0 = time.perf_counter()
+    start.record()
+    batch = fj_chunk(eng.p, eng.batch, eng.steps_per_chunk, eng.block,
+                     stats)
+    stop.record()
+    stop.synchronize()
+    wall = time.perf_counter() - t0
+    m, Lc = eng.p.col_vals.shape
+    log(f"[mip] {name}: FJ chunk of {eng.steps_per_chunk} steps, "
+        f"{eng.batch_size} climbers, Lc {Lc}, K {3 * Lc + 2}, scoring "
+        f"block {eng.block} of {m} variables: wall {wall:.4f} s "
+        f"({1e3 * wall / eng.steps_per_chunk:.3f} ms a step), device "
+        f"{start.elapsed_time(stop) / 1e3:.4f} s, "
+        f"{stats.get('full_rescores', 0)} full rescorings of a climber, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    require(bool(torch.isfinite(batch.act).all()), f"{name}: FJ act")
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -797,10 +1232,50 @@ def main() -> int:
         require(total[k.name] > 0,
                 f"{k.name} was never launched on the main path")
 
-    phase_profile("staircase-50k", p50)
-    phase_profile("staircase-300k", p300)
-    phase_profile("degen-transport-100k", pd, DEGEN_STEPS)
+    # six majors each: the profiler's own processing took about 2 min of
+    # host time over the full solves, and the per-step figures do not
+    # need them
+    phase_profile("staircase-50k", p50, PROFILE_STEPS)
+    phase_profile("staircase-300k", p300, PROFILE_STEPS)
+    phase_profile("degen-transport-100k", pd, PROFILE_STEPS)
     log(f"[profile] done at {time.perf_counter() - t_start:.1f} s")
+    del p300, pd, p50s
+    torch.cuda.empty_cache()
+
+    # phases 11-14 run in float64: the row-pass kernels (float32) see no
+    # launch there, and their counts go on adding up
+    pf.reset_counts()
+    phase_batch("staircase-50k x8", p50, "blockband")
+    # Batched and alone, a dense-1k member's iterates part in their last
+    # bits (other kernels sum in other orders) and drift apart over its
+    # ~13 majors: the two runs can stop a major apart, or in one major at
+    # two 1e-4 points more than 1e-6 apart (PERF.md, section 6). So here the
+    # end is held to the solves' own tolerance and to each member being
+    # nearest its own solo run, and the trajectory to the per-major check
+    # of batch_majors_check
+    phase_batch("dense-1k x8", staircase(1000), "dense", obj_rtol=1e-4,
+                steps_rtol=None)
+    log(f"[batch] done at {time.perf_counter() - t_start:.1f} s")
+    phase_exact_mips()
+    log(f"[mip] exact MIPs done at {time.perf_counter() - t_start:.1f} s")
+    n13 = simplex_root_size()
+    p13, x13 = staircase_mip(n13)
+    sol13 = phase_mip(f"staircase-mip-{n13 // 1000}k", p13, x13, 30.0,
+                      {"root_lp": "dual_simplex", "node_lp": "dual_simplex"})
+    # within strengthen_root's gate a cut round starts; whether it ends
+    # inside its simplex cap is printed with the tree's mip_stats
+    if n13 * 2 * n13 <= 3e7:
+        require(sol13._raw["mip_stats"]["cut_rounds"] >= 1,
+                "staircase-mip: no cut round")
+    log(f"[mip] staircase-mip-{n13 // 1000}k done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    p14, x14 = staircase_mip(50_000)
+    phase_mip("staircase-mip-50k", p14, x14, 60.0,
+              {"root_lp": "pdlp", "node_lp": "pdlp"})
+    phase_fj_chunk("staircase-mip-50k", p14)
+    log(f"[mip] staircase-mip-50k done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    total.update({k.name: k.launches for k in pf.KERNELS})
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",

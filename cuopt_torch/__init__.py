@@ -2,9 +2,11 @@
 
 LP by restarted PDHG (PDLP) on the block-band operator, with the fused
 row pass (Ax -> dual prox -> A^T y) as a hand-written sm_90a CUDA kernel
-(csrc/row_pass.cu). Plain tensor code is PyTorch; every entry point runs
-on `cuda` unless the caller passes `device="cpu"`, where each kernel's
-plain PyTorch version serves instead.
+(csrc/row_pass.cu); batches of LPs as one stacked program (`batch_solve`);
+MIP by branch-and-bound beside feasibility-jump climbers on the card
+(`solve_mip`). Plain tensor code is PyTorch; every entry point runs on
+`cuda` unless the caller passes `device="cpu"`, where each kernel's plain
+PyTorch version serves instead.
 
 The package imports neither JAX nor cuopt_tpu: cuopt_tpu stays beside it
 as the reference that the tests hold it against.
@@ -21,7 +23,13 @@ from cuopt_torch.utils.errors import (  # noqa: E402
     ValidationError,
 )
 
+from cuopt_torch.lp.batch import batch_solve  # noqa: E402
+from cuopt_torch.mip.solve import solve_mip  # noqa: E402
+
+
 __all__ = [
+    "batch_solve",
+    "solve_mip",
     "CuOptTorchError",
     "InputValidationError",
     "MpsParseError",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 
@@ -71,13 +72,21 @@ SIGNATURES = {
 }
 
 
+_TYPES_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
     """The simplex library, built on first use, with every entry point's
-    types declared."""
+    types declared once: setting a function's argtypes while another
+    thread (strong branching's pool) is inside a call to it corrupts the
+    converters that call is reading."""
     lib = BUILDER.simplex_library()
-    for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, argtypes
+    with _TYPES_LOCK:
+        if not getattr(lib, "_cuopt_torch_typed", False):
+            for name, (restype, argtypes) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = restype, argtypes
+            lib._cuopt_torch_typed = True
     return lib
 
 

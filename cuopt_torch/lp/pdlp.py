@@ -16,6 +16,9 @@ device:
   - On a CUDA float32 BlockBandOp every attempt runs the fused row pass
     (lp/pdhg_fused.py, kernels in csrc/row_pass.cu); otherwise the
     unfused matvec -> dual prox -> rmatvec chain.
+  - An attempt (`_attempt`) and the end of a major (`major_tail`) are
+    pure tensor code: lp/batch.py runs them under torch.func.vmap over a
+    stack of same-shape problems.
 
 Problem form (minimize):  min c^T x  s.t.  l_c <= Ax <= u_c,
 l_v <= x <= u_v. The two-sided dual projection is the proximal step of
@@ -25,6 +28,7 @@ p(y) = l_c^T y+ - u_c^T y- (see PDLP paper, arXiv:2106.04756).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -233,72 +237,69 @@ def _use_fused(dev: DeviceProblem, dtype, cfg: StaticCfg) -> bool:
     return dev.op.row_slabs.is_cuda
 
 
-def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
-    """One PDHG step with Malitsky-Pock adaptive step size (reference
-    pdlp.cu take_step :1188 + adaptive_step_size_strategy)."""
+def _attempt(dev: DeviceProblem, s: SolverState, cfg: StaticCfg, grad,
+             eta, attempts):
+    """One attempt of a PDHG step at step size `eta`, the attempt's
+    0-based index within the step being `attempts`. Returns (candidate
+    iterate dict, valid, next step size). Pure tensor code with no host
+    sync, so lp/batch.py runs it under torch.func.vmap."""
     hp = cfg.hp
     omega = s.primal_weight
     dt = s.x.dtype
     big = torch.finfo(dt).max
-    fused = _use_fused(dev, dt, cfg)
-    grad = dev.c - s.aty
-    eta = s.step_size
-    attempts = 0
-    while True:
-        tau = eta / omega
-        sigma = eta * omega
-        x_new = torch.clamp(s.x - tau * grad, dev.lv, dev.uv)
-        dx = x_new - s.x
-        if fused:
-            # infinite-row sentinel scaled so sigma * sentinel cannot
-            # overflow f32 (a 1e30 sentinel times sigma beyond ~3e8 is
-            # inf, and a later inf-inf NaN); big/8/sigma keeps the product
-            # at ~finfo.max/8, still decisively one-sided
-            sent = big / 8.0 / sigma.clamp(min=1.0)
-            lc0m = torch.where(dev.lc_fin, dev.lc0, -sent)
-            uc0m = torch.where(dev.uc_fin, dev.uc0, sent)
-            ax_new, y_new, aty_new, inter_raw, dy_dot = fused_row_pass(
-                dev.op, x_new, s.ax, s.y, lc0m, uc0m, sigma)
-            interaction = inter_raw.abs()
-            movement = 0.5 * omega * torch.dot(dx, dx) + 0.5 / omega * dy_dot
-            xx = torch.dot(x_new, x_new)
-            yy = torch.dot(y_new, y_new)
-        else:
-            ax_new = dev.op.matvec(x_new)
-            ax_tilde = 2.0 * ax_new - s.ax
-            # two-sided dual proximal step
-            y_low = torch.where(dev.lc_fin,
-                                s.y + sigma * (dev.lc0 - ax_tilde), -big)
-            y_high = torch.where(dev.uc_fin,
-                                 s.y + sigma * (dev.uc0 - ax_tilde), big)
-            y_new = torch.where(y_low > 0.0, y_low,
-                                torch.where(y_high < 0.0, y_high, 0.0))
-            aty_new = dev.op.rmatvec(y_new)
-            dy = y_new - s.y
-            dxdx = (dx * dx).sum()
-            xx = (x_new * x_new).sum()
-            dydy = (dy * dy).sum()
-            interaction = (dy * (ax_new - s.ax)).sum().abs()
-            yy = (y_new * y_new).sum()
-            movement = 0.5 * omega * dxdx + 0.5 / omega * dydy
-        eta_limit = torch.where(interaction > 0.0, movement / interaction,
-                                big)
-        valid = eta <= eta_limit
-        # iteration counter for the growth/reduction schedule: the current
-        # attempt's 1-based global index plus one (PDLP counts iterations
-        # from 1 at the first adaptive update)
-        k1 = (s.total_attempts + (attempts + 2)).to(dt)
-        eta_next = torch.minimum(
-            (1.0 - k1 ** (-hp.reduction_exponent)) * eta_limit,
-            (1.0 + k1 ** (-hp.growth_exponent)) * eta,
-        )
-        attempts += 1
-        # one device sync per attempt (see module docstring)
-        if attempts >= cfg.max_step_attempts or bool(valid):
-            break
-        eta = eta_next
-    debug_assert(eta_next > 0.0, "PDHG step size must stay positive")
+    tau = eta / omega
+    sigma = eta * omega
+    x_new = torch.clamp(s.x - tau * grad, dev.lv, dev.uv)
+    dx = x_new - s.x
+    if _use_fused(dev, dt, cfg):
+        # infinite-row sentinel scaled so sigma * sentinel cannot
+        # overflow f32 (a 1e30 sentinel times sigma beyond ~3e8 is
+        # inf, and a later inf-inf NaN); big/8/sigma keeps the product
+        # at ~finfo.max/8, still decisively one-sided
+        sent = big / 8.0 / sigma.clamp(min=1.0)
+        lc0m = torch.where(dev.lc_fin, dev.lc0, -sent)
+        uc0m = torch.where(dev.uc_fin, dev.uc0, sent)
+        ax_new, y_new, aty_new, inter_raw, dy_dot = fused_row_pass(
+            dev.op, x_new, s.ax, s.y, lc0m, uc0m, sigma)
+        interaction = inter_raw.abs()
+        movement = 0.5 * omega * torch.dot(dx, dx) + 0.5 / omega * dy_dot
+        xx = torch.dot(x_new, x_new)
+        yy = torch.dot(y_new, y_new)
+    else:
+        ax_new = dev.op.matvec(x_new)
+        ax_tilde = 2.0 * ax_new - s.ax
+        # two-sided dual proximal step
+        y_low = torch.where(dev.lc_fin,
+                            s.y + sigma * (dev.lc0 - ax_tilde), -big)
+        y_high = torch.where(dev.uc_fin,
+                             s.y + sigma * (dev.uc0 - ax_tilde), big)
+        y_new = torch.where(y_low > 0.0, y_low,
+                            torch.where(y_high < 0.0, y_high, 0.0))
+        aty_new = dev.op.rmatvec(y_new)
+        dy = y_new - s.y
+        dxdx = (dx * dx).sum()
+        xx = (x_new * x_new).sum()
+        dydy = (dy * dy).sum()
+        interaction = (dy * (ax_new - s.ax)).sum().abs()
+        yy = (y_new * y_new).sum()
+        movement = 0.5 * omega * dxdx + 0.5 / omega * dydy
+    eta_limit = torch.where(interaction > 0.0, movement / interaction, big)
+    valid = eta <= eta_limit
+    # iteration counter for the growth/reduction schedule: the current
+    # attempt's 1-based global index plus one (PDLP counts iterations
+    # from 1 at the first adaptive update)
+    k1 = (s.total_attempts + (attempts + 2)).to(dt)
+    eta_next = torch.minimum(
+        (1.0 - k1 ** (-hp.reduction_exponent)) * eta_limit,
+        (1.0 + k1 ** (-hp.growth_exponent)) * eta,
+    )
+    cand = dict(x=x_new, y=y_new, ax=ax_new, aty=aty_new, xx=xx, yy=yy)
+    return cand, valid, eta_next
 
+
+def _accept(s: SolverState, cand, eta, eta_next, attempts) -> SolverState:
+    """The state after a step that accepted `cand` at step size `eta`
+    after `attempts` attempts."""
     # weighted average update with weight = accepted step size
     sum_w = s.sum_weights + eta
     frac = eta / sum_w
@@ -307,19 +308,36 @@ def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
         return avg + frac * (new - avg)
 
     return s.replace(
-        x=x_new, y=y_new, ax=ax_new, aty=aty_new,
+        x=cand["x"], y=cand["y"], ax=cand["ax"], aty=cand["aty"],
         step_size=eta_next,
         sum_weights=sum_w,
-        avg_x=upd(s.avg_x, x_new),
-        avg_y=upd(s.avg_y, y_new),
-        avg_ax=upd(s.avg_ax, ax_new),
-        avg_aty=upd(s.avg_aty, aty_new),
+        avg_x=upd(s.avg_x, cand["x"]),
+        avg_y=upd(s.avg_y, cand["y"]),
+        avg_ax=upd(s.avg_ax, cand["ax"]),
+        avg_aty=upd(s.avg_aty, cand["aty"]),
         iters_since_restart=s.iters_since_restart + 1,
         total_steps=s.total_steps + 1,
         total_attempts=s.total_attempts + attempts,
-        numerical_error=s.numerical_error | ~torch.isfinite(xx)
-        | ~torch.isfinite(yy),
+        numerical_error=s.numerical_error | ~torch.isfinite(cand["xx"])
+        | ~torch.isfinite(cand["yy"]),
     )
+
+
+def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
+    """One PDHG step with Malitsky-Pock adaptive step size (reference
+    pdlp.cu take_step :1188 + adaptive_step_size_strategy)."""
+    grad = dev.c - s.aty
+    eta = s.step_size
+    attempts = 0
+    while True:
+        cand, valid, eta_next = _attempt(dev, s, cfg, grad, eta, attempts)
+        attempts += 1
+        # one device sync per attempt (see module docstring)
+        if attempts >= cfg.max_step_attempts or bool(valid):
+            break
+        eta = eta_next
+    debug_assert(eta_next > 0.0, "PDHG step size must stay positive")
+    return _accept(s, cand, eta, eta_next, attempts)
 
 
 # ========================================================== infeasibility
@@ -336,7 +354,11 @@ def _ray_scores(dev: DeviceProblem, x_ray, y_ray):
     yn = y_ray / (y_norm + eps)
     yp = yn.clamp(min=0.0)
     ym = (-yn).clamp(min=0.0)
-    aty_ray = dev.op.rmatvec(y_ray * dev.row_scale) / dev.col_scale / (
+    # A^T y = C^-1 (R A C)^T R^-1 y for a user-space y. (cuopt_tpu
+    # multiplies by R here, pdlp.py:416, which evaluates A^T R^2 y: on a
+    # feasible LP whose row scales are far from 1 the certificate then
+    # passes, and infeasibility detection stops the solve as INFEASIBLE.)
+    aty_ray = dev.op.rmatvec(y_ray / dev.row_scale) / dev.col_scale / (
         y_norm + eps)
     r = -aty_ray
     rp = r.clamp(min=0.0)
@@ -557,6 +579,13 @@ def major_iteration(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
     with trace_scope("pdlp_pdhg_steps"):
         for _ in range(cfg.hp.major_iteration):
             s = _take_step(dev, s, cfg)
+    return major_tail(dev, s, cfg)
+
+
+def major_tail(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
+    """Termination information and the restart after a major's steps.
+    Returns (state, report). Pure tensor code with no host sync, so
+    lp/batch.py runs it under torch.func.vmap."""
     # termination info in user space, for current and average iterates
     with trace_scope("pdlp_termination"):
         info_cur = _unscaled_info(dev, s.x, s.y, s.ax, s.aty)
@@ -682,12 +711,13 @@ def build_device_problem(prob, hp: PdlpHyperParams, dtype,
     Cached per problem OBJECT under `_cuopt_torch_device_cache` (a name of
     this package's own, so a problem seen by both packages never returns
     the other's device problem). The key is (dtype, operator_kind,
-    device, scaling knobs); callers who mutate a problem in place must
-    drop the cache."""
+    device, scaling knobs) and a digest of the objective and the bounds,
+    so a caller that changes those in place (the feasibility pump moves
+    its distance rows' bounds every iteration) gets a fresh build."""
     device = torch.device(device)
     key = (str(dtype), operator_kind, str(device), hp.do_ruiz_scaling,
            hp.l_inf_ruiz_iterations, hp.do_pock_chambolle_scaling,
-           hp.alpha_pock_chambolle)
+           hp.alpha_pock_chambolle, _vectors_digest(prob))
     cache = getattr(prob, "_cuopt_torch_device_cache", None)
     if cache is not None and cache[0] == key:
         return cache[1]
@@ -695,6 +725,23 @@ def build_device_problem(prob, hp: PdlpHyperParams, dtype,
                                          device)
     prob._cuopt_torch_device_cache = (key, dev)
     return dev
+
+
+def cached_device_problem(prob):
+    """The device problem last built for `prob`, or None."""
+    cache = getattr(prob, "_cuopt_torch_device_cache", None)
+    return None if cache is None else cache[1]
+
+
+def _vectors_digest(prob) -> str:
+    """A digest of the objective, its offset and sense, and every bound."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((prob.maximize, float(prob.objective_offset))).encode())
+    for v in (prob.objective_coefficients, prob.variable_lower_bounds,
+              prob.variable_upper_bounds, prob.constraint_lower_bounds,
+              prob.constraint_upper_bounds):
+        h.update(np.ascontiguousarray(v, np.float64).data)
+    return h.hexdigest()
 
 
 def _finite_parts(dev_vectors: dict) -> dict:

@@ -2,8 +2,9 @@
 
 Mirrors the reference `pdlp_solver_settings_t`
 (cpp/include/cuopt/linear_programming/pdlp/solver_settings.hpp:70, tolerance
-defaults :179-188). The string-keyed registry and MIP settings wait for
-the slices that port those solvers (ROADMAP Queue 1).
+defaults :179-188) and the MIP settings (mip/solver_settings.hpp). The
+string-keyed registry waits for the slice that ports the surface (ROADMAP
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -25,6 +26,17 @@ class PdlpTolerances:
     relative_gap_tolerance: float = 1e-4
     primal_infeasible_tolerance: float = 1e-8
     dual_infeasible_tolerance: float = 1e-8
+
+
+@dataclass
+class MipTolerances:
+    # reference mip/solver_settings.hpp:75-80
+    absolute_tolerance: float = 1e-4
+    relative_tolerance: float = 1e-6
+    integrality_tolerance: float = 1e-5
+    absolute_mip_gap: float = 1e-10
+    relative_mip_gap: float = 1e-4
+    presolve_absolute_tolerance: float = 1e-6
 
 
 @dataclass
@@ -73,3 +85,29 @@ class PDLPSolverSettings:
         t.relative_primal_tolerance = eps
         t.absolute_gap_tolerance = eps
         t.relative_gap_tolerance = eps
+
+
+@dataclass
+class MIPSolverSettings:
+    tolerances: MipTolerances = field(default_factory=MipTolerances)
+    time_limit: float = math.inf
+    heuristics_only: bool = False
+    num_cpu_threads: int = -1
+    log_file: str = ""
+    log_to_console: bool = True
+    mip_scaling: bool = True
+    solution_file: str = ""
+    dtype: str = "float64"
+    # user initial solutions (reference mip solver_settings.hpp:55)
+    initial_solutions: list = field(default_factory=list)
+    # incumbent callbacks (reference internals.hpp:28-79; Python
+    # solver_settings.py set_mip_callback :241)
+    mip_callbacks: list = field(default_factory=list)
+
+    def set_initial_solution(self, x) -> None:
+        import numpy as np
+
+        self.initial_solutions.append(np.asarray(x, float))
+
+    def set_mip_callback(self, callback) -> None:
+        self.mip_callbacks.append(callback)

@@ -7,7 +7,10 @@ enum :37) and the Python `Solution` wrapper
 reference's keys, the termination information carries the port's timing
 split (compile_s, solve_loop_s, loop_steps, loop_attempts), a crossover's
 pivots, the concurrent race's record ("race") and, when the PDLP leg of a
-race failed, its error ("pdlp_error").
+race failed, its error ("pdlp_error"). A MIP solve adds its node count,
+gap and bound, the errors its heuristics caught ("heuristic_errors"), the
+engine of each LP of its tree ("mip_stats") and its FJ climbers' device,
+chunks stepped, batch and scoring block ("fj").
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ class Solution:
             "iterations", "attempts", "solve_time", "solved_by",
             "compile_s", "solve_loop_s", "loop_steps", "loop_attempts",
             "crossover_iterations", "race", "pdlp_error",
+            "nodes", "mip_gap", "solution_bound", "heuristic_errors",
+            "mip_stats", "fj",
         )
         return {k: self._raw[k] for k in keys if k in self._raw}
 
@@ -93,6 +98,13 @@ class Solution:
             if fn is not None:
                 ws = self._raw["warm_start_data"] = fn()
         return ws
+
+    # --- MIP extras (set by mip/solve.py) ---
+    def get_mip_gap(self) -> float:
+        return self._raw.get("mip_gap", float("nan"))
+
+    def get_solution_bound(self) -> float:
+        return self._raw.get("solution_bound", float("nan"))
 
     def get_vars(self) -> dict:
         x = self._raw["primal_solution"]

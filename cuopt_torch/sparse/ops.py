@@ -31,8 +31,9 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def _segment_sum(vals, seg, n):
+    # out of place, so that lp/batch.py can vmap it over stacked values
     return torch.zeros(n, dtype=vals.dtype, device=vals.device) \
-        .index_add_(0, seg, vals)
+        .index_add(0, seg, vals)
 
 
 def _segment_abs_max(vals, seg, n):

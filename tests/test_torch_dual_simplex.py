@@ -182,6 +182,33 @@ def test_library_is_the_ports_own():
     assert Path(JB._LIB_PATH).resolve() != lib.resolve()
 
 
+def test_concurrent_calls_from_threads():
+    """Many threads solving at once, as strong branching's pool does, all
+    get the single-thread answer: the entry points' types are declared
+    once, never while another thread is inside a call. (Declared at
+    every call, with the interpreter switching threads every microsecond
+    as below, this crashed the process within 200 calls.)"""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    prob = t_generate(48, 48, 4, seed=9)
+    want = TB.solve_lp_simplex(prob, TSettings(), TTimer(60))
+
+    def solve(_):
+        return TB.solve_lp_simplex(prob, TSettings(), TTimer(60))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            raws = list(pool.map(solve, range(200)))
+    finally:
+        sys.setswitchinterval(interval)
+    for raw in raws:
+        assert raw["status"] == want["status"]
+        assert np.array_equal(raw["primal_solution"], want["primal_solution"])
+
+
 # -------------------------------------------------------- bit for bit
 @pytest.mark.parametrize("name", sorted(INSTANCES))
 def test_solve_matches_cuopt_tpu_bit_for_bit(name):

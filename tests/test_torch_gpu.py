@@ -244,3 +244,142 @@ def test_warm_resolve_runs_every_attempt_through_the_kernel(cuda):
     assert abs(a - b) <= 1e-3 * (1 + abs(b)), (a, b)
     assert info["iterations"] - ws.total_pdlp_iterations < \
         cold.get_nb_iterations()
+
+
+# ----------------------------------------------- batch LP and MIP on the card
+def test_batched_block_band_matches_single_operators(cuda):
+    """The stacked block-band operator of lp/batch.py (one sparsity
+    pattern, per-member values, shared window starts) under vmap gives
+    each member's matvec and rmatvec of its own operator, with spill."""
+    from torch.func import vmap
+
+    from cuopt_torch.lp import batch as TB
+
+    n = 3000
+    base = generate_lp(n, n, 6, seed=5, band=96)
+    rng = np.random.default_rng(0)
+    # one far entry in every 50th row: outside its tile's window (spill)
+    rows = np.repeat(np.arange(n), np.diff(base.offsets))
+    far = np.arange(0, n, 50)
+    order = np.argsort(np.concatenate([rows, far]), kind="stable")
+    cols = np.concatenate([base.indices, (far + n // 2) % n])[order]
+    vals = np.concatenate([base.values, rng.normal(size=len(far))])[order]
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(
+        np.concatenate([rows, far]), minlength=n))])
+    ops = [build_operator(offsets, cols, vals * rng.uniform(0.5, 1.5,
+                                                            len(vals)),
+                          n, n, dtype=torch.float64, kind="blockband",
+                          device=cuda) for _ in range(4)]
+    assert all(o.row_starts == ops[0].row_starts for o in ops)
+    assert ops[0].spill_vals.numel() and ops[0].t_spill_vals.numel()
+    leaves = TB._stack(ops)
+    x = torch.randn(4, n, dtype=torch.float64, device=cuda)
+    y = torch.randn(4, n, dtype=torch.float64, device=cuda)
+
+    def mv(lv, v):
+        return TB._join(ops[0], lv).matvec(v)
+
+    def rmv(lv, v):
+        return TB._join(ops[0], lv).rmatvec(v)
+
+    ax, aty = vmap(mv)(leaves, x), vmap(rmv)(leaves, y)
+    for b, op in enumerate(ops):
+        torch.testing.assert_close(ax[b], op.matvec(x[b]), rtol=1e-12,
+                                   atol=1e-12)
+        torch.testing.assert_close(aty[b], op.rmatvec(y[b]), rtol=1e-12,
+                                   atol=1e-12)
+
+
+def test_batch_solve_on_card(cuda):
+    from cuopt_torch.lp.batch import batch_solve
+
+    base = generate_lp(2000, 2000, 6, seed=3, band=96)
+    rng = np.random.default_rng(0)
+    probs = [dataclasses.replace(
+        base, constraint_upper_bounds=base.constraint_upper_bounds
+        + rng.uniform(0, 0.5, base.n_constraints)) for _ in range(4)]
+    s = PDLPSolverSettings()
+    s.log_to_console = False
+    s.method = C.CUOPT_METHOD_PDLP
+    sols = batch_solve(probs, s)
+    for p, sol in zip(probs, sols):
+        assert sol._raw["solved_by"] == "pdlp_batch"
+        solo = solve_lp(dataclasses.replace(p), s)
+        assert sol.get_termination_reason() == "Optimal"
+        a, b = sol.get_primal_objective(), solo.get_primal_objective()
+        assert abs(a - b) <= 1e-3 * abs(b)
+
+
+def test_fj_blocked_scoring_equals_unblocked_on_card(cuda):
+    """Blocked candidate scoring on the card gives the bits of one block
+    over every variable, and a chunk stepped either way the same state."""
+    from cuopt_torch.mip import feasibility_jump as F
+
+    p = generate_lp(2000, 2000, 8, seed=123, band=256)
+    rng = np.random.default_rng(0)
+    p.variable_types[rng.choice(2000, 600, replace=False)] = "I"
+    fp = F.make_fj_problem(p, device=cuda)
+    s0 = F.init_state(fp, rng.uniform(0, 1, (9, 2000)), [1e-3] * 9)
+    block = F.score_block_size(fp, 9, cap_bytes=1 << 20)
+    assert block < 2000
+    whole = F.score_block(fp, s0, 0, 2000)
+    parts = [F.score_block(fp, s0, j, min(j + block, 2000))
+             for j in range(0, 2000, block)]
+    for k in range(2):
+        assert torch.equal(whole[k], torch.cat([q[k] for q in parts], 1))
+    a = F.fj_chunk(fp, s0, 16, block=2000)
+    b = F.fj_chunk(fp, s0, 16, block=block)
+    for f in dataclasses.fields(F.FjState):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+def test_fj_chunk_rescoring_equals_full_rescoring_on_card(cuda):
+    """On the card, a chunk that rescores only what each step changed,
+    replaying the step's CUDA graph, gives the bits of rescoring every
+    variable at every step (chunks of one step); a second chunk reuses
+    the graph."""
+    from cuopt_torch.mip import feasibility_jump as F
+
+    p = generate_lp(2000, 2000, 8, seed=123, band=256)
+    rng = np.random.default_rng(1)
+    p.variable_types[rng.choice(2000, 600, replace=False)] = "I"
+    fp = F.make_fj_problem(p, device=cuda)
+    s0 = F.init_state(fp, rng.uniform(0, 1, (9, 2000)),
+                      [1e-3, 1e-2, 1e-4, 0.0] * 2 + [1e-3])
+    stats = {}
+    a = F.fj_chunk(fp, s0, 32, stats=stats)
+    a = F.fj_chunk(fp, a, 32, stats=stats)
+    b = s0
+    for _ in range(64):
+        b = F.fj_chunk(fp, b, 1)
+    for f in dataclasses.fields(F.FjState):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    assert stats["full_rescores"] < 64 * 9
+    assert list(fp._step_graphs) == [9]
+
+
+def test_solve_mip_on_card(cuda):
+    """A small mixed MIP by solve_mip on the card: the FJ thread steps its
+    climbers on a stream of its own and records no error."""
+    from cuopt_torch.lp.settings import MIPSolverSettings
+    from cuopt_torch.mip.solve import solve_mip
+
+    p = generate_lp(300, 300, 8, seed=123, band=256)
+    rng = np.random.default_rng(0)
+    is_int = np.zeros(300, bool)
+    is_int[rng.choice(300, 90, replace=False)] = True
+    x_hat = np.where(is_int, rng.integers(0, 2, 300), rng.uniform(0.2, 0.8,
+                                                                 300))
+    ub = p.to_dense() @ x_hat + rng.uniform(0.1, 1.0, 300)
+    p = dataclasses.replace(
+        p, variable_types=np.where(is_int, "I", "C").astype("U1"),
+        constraint_upper_bounds=ub, rhs=ub.copy())
+    s = MIPSolverSettings()
+    s.time_limit = 20.0
+    s.log_to_console = False
+    sol = solve_mip(p, s)
+    assert sol.get_termination_reason() in ("Optimal", "FeasibleFound")
+    assert sol._raw["heuristic_errors"] == []
+    assert sol._raw["fj"]["device"].startswith("cuda")
+    assert sol.get_primal_objective() <= float(
+        p.objective_coefficients @ x_hat) + 1e-6

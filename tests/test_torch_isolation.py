@@ -81,9 +81,22 @@ def test_default_device_is_cuda():
     from cuopt_torch.lp.solve import solve_lp
     from cuopt_torch.problem.synthetic import generate_lp
 
+    from cuopt_torch import batch_solve, solve_mip
+    from cuopt_torch.lp.settings import MIPSolverSettings
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     s = PDLPSolverSettings()
     s.log_to_console = False
     with pytest.raises((RuntimeError, AssertionError)):
         solve_lp(generate_lp(64, 64, 4, seed=3), s)
+    with pytest.raises((RuntimeError, AssertionError)):
+        batch_solve([generate_lp(64, 64, 4, seed=k) for k in (3, 4)], s)
+    # a MIP the host alone could solve (presolve fixes every variable)
+    p = generate_lp(8, 8, 2, seed=3)
+    p.variable_types[:] = "I"
+    p.variable_upper_bounds[:] = 0.0
+    ms = MIPSolverSettings()
+    ms.log_to_console = False
+    with pytest.raises((RuntimeError, AssertionError)):
+        solve_mip(p, ms)

@@ -187,7 +187,7 @@ def test_solve_matches_absorbed_permutation():
                        device="cpu")
     j_sol = j_solve_lp(j_prob, _settings(JSettings, 1e-7, **kw))
     _assert_same_solution(t_sol, j_sol, 1e-6)
-    t_dev = t_prob._cuopt_torch_device_cache[1]
+    t_dev = T.cached_device_problem(t_prob)
     assert isinstance(t_dev.op, BlockBandOp) and t_dev.col_perm is not None
     # the user-order primal solution is feasible for the user's problem
     x = t_sol.get_primal_solution()
@@ -329,12 +329,52 @@ def _close(a, b, rtol=1e-8, atol=1e-12):
     return abs(float(a) - float(b)) <= atol + rtol * abs(float(b))
 
 
+_DUAL_KEYS = ("has_dual_ray", "max_dual_ray_infeasibility",
+              "dual_ray_objective")
+
+
+def _dual_ray_oracle(prob, yr):
+    """The dual-ray scores of `_ray_scores` for a user-space row vector
+    `yr`, in float64 numpy on the unscaled host matrix: the Farkas
+    quantities for y = yr / max|yr| and A^T y."""
+    eps = 1e-32
+    y_norm = max(float(np.max(np.abs(yr), initial=0.0)), 0.0)
+    yn = yr / (y_norm + eps)
+    yp, ym = np.maximum(yn, 0.0), np.maximum(-yn, 0.0)
+    rows = np.repeat(np.arange(prob.n_constraints), np.diff(prob.offsets))
+    aty = np.zeros(prob.n_variables)
+    np.add.at(aty, prob.indices, prob.values * yr[rows])
+    r = -aty / (y_norm + eps)
+    rp, rm = np.maximum(r, 0.0), np.maximum(-r, 0.0)
+    lc, uc = prob.constraint_lower_bounds, prob.constraint_upper_bounds
+    lv, uv = prob.variable_lower_bounds, prob.variable_upper_bounds
+    fin = [np.isfinite(v) for v in (lc, uc, lv, uv)]
+
+    def max0(v):
+        return max(float(np.max(v, initial=0.0)), 0.0)
+
+    viol = max(max0(np.where(fin[0], 0.0, yp)),
+               max0(np.where(fin[1], 0.0, ym)),
+               max0(np.where(fin[2], 0.0, rp)),
+               max0(np.where(fin[3], 0.0, rm)))
+    obj = (np.sum(np.where(fin[0], np.where(fin[0], lc, 0.0) * yp, 0.0)
+                  - np.where(fin[1], np.where(fin[1], uc, 0.0) * ym, 0.0))
+           + np.sum(np.where(fin[2], np.where(fin[2], lv, 0.0) * rp, 0.0)
+                    - np.where(fin[3], np.where(fin[3], uv, 0.0) * rm, 0.0)))
+    return dict(has_dual_ray=y_norm > 0.0, max_dual_ray_infeasibility=viol,
+                dual_ray_objective=float(obj))
+
+
 @pytest.mark.parametrize("case", sorted(_DETECT))
 def test_infeasibility_flags_match(case):
-    """detect_infeasibility: from the same state each major, both
-    packages score the same ray candidates (`_ray_scores`) and raise the
-    same flags (`_infeasibility_flags`), and the instance's own flag
-    fires."""
+    """detect_infeasibility: from the same state each major, the port's
+    ray candidates score as cuopt_tpu's on the primal ray and as the
+    float64 Farkas oracle on the dual ray, the port raises exactly the
+    flags those scores imply, and the instance's own flag fires.
+
+    The dual ray is held against the oracle, not against cuopt_tpu:
+    cuopt_tpu evaluates A^T R^2 y where A^T y is meant (pdlp.py:416, R the
+    row scales), which the port does not copy."""
     make, flag, dual_tol, _ = _DETECT[case]
     prob = make(j_generate)
     settings = JSettings()
@@ -345,39 +385,62 @@ def test_infeasibility_flags_match(case):
     j_dev = J.build_device_problem(prob, hp, jnp.float64)
     j_state = J.initial_state(j_dev, hp, jnp.float64)
     t_dev = T.device_problem_from_arrays(_dev_arrays(j_dev), "cpu")
+    assert t_dev.col_perm is None  # rays in user order
     cfg = T.StaticCfg(**{f.name: getattr(j_solver.cfg, f.name)
                          for f in dataclasses.fields(j_solver.cfg)})
     assert cfg.detect_infeasibility
     j_major = J.make_major_fn(j_solver.cfg)
     t_major = T.make_major_fn(cfg)
     fired = 0
+    col, row = np.asarray(j_dev.col_scale), np.asarray(j_dev.row_scale)
     for k in range(12):
-        arrays = _state_arrays(j_state)
-        t_state = T.state_from_arrays(arrays, "cpu")
-        col, row = np.asarray(j_dev.col_scale), np.asarray(j_dev.row_scale)
+        t_state = T.state_from_arrays(_state_arrays(j_state), "cpu")
+        # the flags read the iterates after the major's steps, before its
+        # restart: score the same candidates both ways there
+        for _ in range(cfg.hp.major_iteration):
+            t_state = T._take_step(t_dev, t_state, cfg)
+        arrays = {f: getattr(t_state, f).numpy() for f in
+                  ("x", "y", "x_last_restart", "y_last_restart")}
         rays = (((arrays["x"] - arrays["x_last_restart"]) * col,
                  (arrays["y"] - arrays["y_last_restart"]) * row),
                 (arrays["x"] * col, arrays["y"] * row))
+        want = {"primal_infeasible": False, "dual_infeasible": False}
         for xr, yr in rays:
             js = J._ray_scores(j_dev, jnp.asarray(xr), jnp.asarray(yr))
             ts = T._ray_scores(t_dev, torch.as_tensor(xr), torch.as_tensor(yr))
+            oracle = _dual_ray_oracle(prob, yr)
             for key, v in js.items():
-                assert _close(ts[key], v), (k, key, float(ts[key]), float(v))
+                ref = oracle[key] if key in _DUAL_KEYS else v
+                assert _close(ts[key], ref), (k, key, float(ts[key]),
+                                              float(ref))
+            want["primal_infeasible"] |= bool(
+                oracle["has_dual_ray"]
+                and oracle["max_dual_ray_infeasibility"] <= cfg.primal_inf_tol
+                and oracle["dual_ray_objective"] > 0.0)
+            want["dual_infeasible"] |= bool(
+                ts["has_primal_ray"]
+                and ts["max_primal_ray_infeasibility"] <= cfg.dual_inf_tol
+                and ts["primal_ray_objective"] < 0.0)
+        t_state, tr = T.major_tail(t_dev, t_state, cfg)
         j_state, jr = j_major(j_dev, j_state)
-        t_state, tr = t_major(t_dev, t_state)
         assert int(tr["total_steps"]) == int(jr["total_steps"])
         for key in ("primal_infeasible", "dual_infeasible"):
-            assert bool(tr[key]) == bool(jr[key]), (k, key)
-        fired += bool(jr[flag])
+            assert bool(tr[key]) == want[key], (k, key)
+        fired += want[flag]
     assert fired > 0
 
 
 @pytest.mark.parametrize("strict", [False, True])
 @pytest.mark.parametrize("case", sorted(_DETECT))
 def test_infeasibility_detection_matches(case, strict):
-    """End to end: the same certificate status after the same number of
-    steps; a strict run stops at the first flagged major, a non-strict
-    one at the second in a row."""
+    """End to end: the same certificate status as cuopt_tpu; a strict run
+    stops at the first flagged major, a non-strict one at the second in a
+    row. On the unbounded LP (primal ray) both packages stop after the
+    same number of steps. On the infeasible LP the port's dual ray is the
+    true A^T y (see test_infeasibility_flags_match), so its steps are held
+    against its own majors replayed with the float64 oracle: the solve
+    stops at the first major whose oracle-certified flags complete the
+    streak."""
     make, _, dual_tol, status = _DETECT[case]
     sols = []
     for S, solve, gen, kw in ((TSettings, t_solve_lp, t_generate,
@@ -392,7 +455,30 @@ def test_infeasibility_detection_matches(case, strict):
         j_sol.get_termination_status() == status
     steps = [s.get_additional_termination_information()["iterations"]
              for s in sols]
-    assert steps[0] == steps[1]
+    if case == "unbounded":
+        assert steps[0] == steps[1]
+        return
+    prob = make(t_generate)
+    settings = _settings(TSettings, 1e-4, detect_infeasibility=True)
+    solver = T.PdlpSolver(prob, settings, "cpu")
+    dev = T.build_device_problem(prob, solver.hp, torch.float64, "auto",
+                                 "cpu")
+    state = T.initial_state(dev, solver.hp, torch.float64)
+    cfg = solver.cfg
+    streak, need = 0, 1 if strict else 2
+    while streak < need:
+        for _ in range(cfg.hp.major_iteration):
+            state = T._take_step(dev, state, cfg)
+        rays = [((state.y - state.y_last_restart) * dev.row_scale).numpy(),
+                (state.y * dev.row_scale).numpy()]
+        state, report = T.major_tail(dev, state, cfg)
+        certified = any(
+            o["has_dual_ray"] and o["max_dual_ray_infeasibility"] <= 1e-8
+            and o["dual_ray_objective"] > 0.0
+            for o in (_dual_ray_oracle(prob, y) for y in rays))
+        assert bool(report["primal_infeasible"]) == certified
+        streak = streak + 1 if certified else 0
+    assert steps[0] == int(report["total_steps"])
 
 
 @pytest.mark.parametrize("option", ["per_constraint_residual",
@@ -546,3 +632,48 @@ def test_no_constraints_matches():
     np.testing.assert_array_equal(t_raw["primal_solution"],
                                   j_raw["primal_solution"])
     assert t_raw["primal_objective"] == j_raw["primal_objective"]
+
+
+def test_feasible_lp_is_not_certified_infeasible():
+    """The LP relaxation of the staircase MIP of tests/torch_mip_instances.py
+    is feasible (it holds x_hat). With detect_infeasibility on, the port
+    solves it to OPTIMAL, while cuopt_tpu's dual-ray check, which
+    evaluates A^T R^2 y (pdlp.py:416), certifies it INFEASIBLE after two
+    majors: the MIP solver's root relaxation takes exactly these settings
+    (mip/solve.py)."""
+    from torch_mip_instances import staircase_mip
+
+    sols = []
+    for S, solve, gen, kw in ((TSettings, t_solve_lp, t_generate,
+                               dict(device="cpu")),
+                              (JSettings, j_solve_lp, j_generate, {})):
+        s = _settings(S, 1e-6, detect_infeasibility=True)
+        sols.append(solve(staircase_mip(gen, 300, 0), s, **kw))
+    t_sol, j_sol = sols
+    assert t_sol.get_termination_reason() == "Optimal"
+    assert j_sol.get_termination_reason() == "Infeasible"
+    assert j_sol.get_nb_iterations() == 80
+    p, x_hat = staircase_mip(t_generate, 300, 0, with_point=True)
+    assert t_sol.get_primal_objective() <= \
+        float(p.objective_coefficients @ x_hat) + 1e-6
+
+
+def test_device_cache_follows_in_place_changes():
+    """The device problem cached on a problem object is rebuilt when the
+    caller changes its bounds or objective in place, and reused when
+    nothing changed."""
+    from cuopt_torch.lp.hyper_params import PdlpHyperParams
+
+    prob = t_generate(64, 64, 4, seed=5)
+    hp = PdlpHyperParams()
+    dev = T.build_device_problem(prob, hp, torch.float64, device="cpu")
+    assert T.build_device_problem(prob, hp, torch.float64,
+                                  device="cpu") is dev
+    assert T.cached_device_problem(prob) is dev
+    prob.constraint_upper_bounds[3] += 1.0
+    dev2 = T.build_device_problem(prob, hp, torch.float64, device="cpu")
+    assert dev2 is not dev
+    assert float(dev2.uc_orig[3]) == prob.constraint_upper_bounds[3]
+    prob.objective_coefficients[0] = -2.0
+    dev3 = T.build_device_problem(prob, hp, torch.float64, device="cpu")
+    assert dev3 is not dev2 and float(dev3.c_orig[0]) == -2.0
