@@ -28,11 +28,13 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      does not solve in reasonable time, to a fixed 400 steps:
      ITERATION_LIMIT, finite iterates, every attempt through the
      column-split body of row_pass_partials;
-  7. concurrent (the default method: the host dual simplex races PDLP):
-     PDLP wins the 50k staircase in float32 through row_pass_atomic and
-     the simplex thread is halted and joined; the simplex wins the 2k
-     staircase inside the grace poll, to HiGHS's optimum within 1e-9; the
-     50k staircase under PDLPSolverSettings() defaults (float64);
+  7. concurrent (the default method: the host dual simplex races PDLP,
+     both legs started at once): PDLP wins the 50k staircase in float32
+     through row_pass_atomic and the simplex thread is halted and joined;
+     the 2k staircase is won by either leg, to HiGHS's optimum within
+     1e-9 (simplex) or 1e-3 (PDLP); the simplex wins the 500 staircase,
+     within 1e-9, in at most 0.5 s more than alone; the 50k staircase
+     under PDLPSolverSettings() defaults (float64);
   8. crossover: PDLP in float32 on the 2k staircase, then the simplex
      from its point to HiGHS's vertex within 1e-9, in fewer pivots than
      a cold simplex;
@@ -52,7 +54,8 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      state take the same attempts as each member's solo majors, x within
      1e-9; the batch's member-steps/s printed beside the solo rate;
   12. exact MIPs: the knapsack and twelve binaries by solve_mip, OPTIMAL
-     at the brute-force optimum, and the twelve binaries by
+     at the brute-force optimum, the twelve binaries with at least one
+     GMI cut round solved and one cut kept, and the twelve binaries by
      BranchAndBound on PDLP nodes, with at least one frontier of two or
      more nodes stacked into one batched program on the card;
   13-14. solve_mip with its defaults on the mixed staircase MIP: at the
@@ -65,7 +68,22 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      the bound must not pass x_hat's objective either; the tree must take
      a node, the FJ climbers must step on the card with no heuristic
      error, and the wall must stay within the limit + 20 s. One FJ chunk
-     at 50k is then timed on its own (wall and CUDA events).
+     at 50k is then timed on its own (wall and CUDA events);
+  15. routing-gh200-C1: Solve on synth_gh_instance(200, "C", 1) (GHC_200_1
+     of scripts/bks_benchmark.py), 30 s, seed 0: status 0, every customer
+     served exactly once, time windows and capacity rechecked on the host
+     in float64, cost at most 0.97 x the port's cheapest insertion; cost
+     and vehicles beside scripts/bks_synth_baseline.json's 2439.01 and
+     21, LS rounds, wall and CUDA-event ms per round, host readbacks per
+     round, peak device memory;
+  16. routing-4k-RC7: synth_gh_instance(4000, "RC", seed=7) (fleet 409,
+     the tiled path): build_problem, build_ls_problem, batched
+     construction, then 20 rounds of local search: every order at most
+     once, every route feasible on the host, cost below construction's;
+     one tile's evaluate_moves_topk on the card against the port on the
+     CPU, deltas within rtol 1e-5 / atol 1e-3 and the same moves but for
+     ties within 1e-3. The routing phases launch no row-pass kernel and
+     load no pandas.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -550,13 +568,18 @@ def _no_simplex_thread_left(name):
 
 
 def phase_concurrent(p50, p2k, highs_2k, alone_rate):
-    """The default method, Concurrent: the host dual simplex races PDLP.
-    (a) staircase-50k in float32: PDLP wins through row_pass_atomic, the
-    simplex is halted and joined; its loop rate beside the PDLP-alone rate
-    of phase 3. (b) the 2k staircase: the simplex wins inside the grace
-    poll, to HiGHS's optimum within 1e-9. (c) staircase-50k under
-    PDLPSolverSettings() defaults (float64, the unfused step). Returns the
-    kernels' launch counts over the three solves."""
+    """The default method, Concurrent: the host dual simplex races PDLP,
+    both legs started at once. (a) staircase-50k in float32: PDLP wins
+    through row_pass_atomic, the simplex is halted and joined; its loop
+    rate beside the PDLP-alone rate of phase 3. (b) the 2k staircase:
+    both legs take about 1 s on an H100, and either may win it:
+    OPTIMAL, within 1e-9 of HiGHS's optimum if the simplex won, within
+    OBJ_RTOL if PDLP did. (b') the 500 staircase, which the simplex wins:
+    to HiGHS's optimum within 1e-9, with a wall at most 0.5 s above the
+    simplex's alone (PDLP stops before it builds its device problem, or
+    right after). (c) staircase-50k under PDLPSolverSettings() defaults
+    (float64, the unfused step). Returns the kernels' launch counts over
+    the solves."""
     import torch
 
     from cuopt_torch import constants as C
@@ -601,9 +624,35 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     log(f"[concurrent] {name}: objective {obj:.12f} (HiGHS {highs_2k:.12f}, "
         f"rel err {rel:.2e}), launches {launches}")
     require(sol.get_termination_reason() == "Optimal", f"{name}: status")
+    require(rel <= (1e-9 if info["solved_by"] == "dual_simplex"
+                    else OBJ_RTOL),
+            f"{name}: objective {obj} vs HiGHS {highs_2k}")
+    _no_simplex_thread_left(name)
+
+    name = "concurrent staircase-500"
+    p500 = staircase(500)
+    highs_500 = highs_objective(p500)
+    walls = {}
+    for method in (C.CUOPT_METHOD_DUAL_SIMPLEX, C.CUOPT_METHOD_CONCURRENT):
+        t0 = time.perf_counter()
+        sol = solve_lp(p500, _settings(20000, method=method))
+        torch.cuda.synchronize()
+        walls[method] = time.perf_counter() - t0
+    info = sol.get_additional_termination_information()
+    alone = walls[C.CUOPT_METHOD_DUAL_SIMPLEX]
+    _race_line(name, info, walls[C.CUOPT_METHOD_CONCURRENT])
+    obj = sol.get_primal_objective()
+    rel = abs(obj - highs_500) / abs(highs_500)
+    log(f"[concurrent] {name}: objective {obj:.12f} (HiGHS "
+        f"{highs_500:.12f}, rel err {rel:.2e}), the simplex alone "
+        f"{alone:.3f} s")
+    require(sol.get_termination_reason() == "Optimal", f"{name}: status")
     require(info["solved_by"] == "dual_simplex",
             f"{name}: {info['solved_by']} won")
-    require(rel <= 1e-9, f"{name}: objective {obj} vs HiGHS {highs_2k}")
+    require(rel <= 1e-9, f"{name}: objective {obj} vs HiGHS {highs_500}")
+    require(walls[C.CUOPT_METHOD_CONCURRENT] <= alone + 0.5,
+            f"{name}: raced {walls[C.CUOPT_METHOD_CONCURRENT]:.3f} s "
+            f"against {alone:.3f} s alone")
     _no_simplex_thread_left(name)
 
     name = "concurrent staircase-50k float64 defaults"
@@ -977,6 +1026,12 @@ def phase_exact_mips():
         require(sol.get_primal_objective() == best, f"{name}: objective")
         require(sol._raw["heuristic_errors"] == [],
                 f"{name}: {sol._raw['heuristic_errors']}")
+        log(f"[mip] {name}: tree {sol._raw['mip_stats']}")
+    # a GMI round that finishes, on cuts valid on the brute-force optimum
+    # (the objective check above)
+    require(sol._raw["mip_stats"]["cut_rounds_solved"] >= 1 and
+            sol._raw["mip_stats"]["root_cuts"] >= 1,
+            "twelve-binaries: no finished cut round with a cut")
     p = twelve_binaries()
     bnb = BranchAndBound(p, MIPSolverSettings(), device="cuda")
     bnb.use_simplex = False
@@ -1175,6 +1230,291 @@ def phase_fj_chunk(name, p):
     require(bool(torch.isfinite(batch.act).all()), f"{name}: FJ act")
 
 
+# ------------------------------------------------------- phases 15-16
+GHC_200_1 = (2439.01, 21)  # scripts/bks_synth_baseline.json
+ROUTING_RTOL, ROUTING_ATOL, ROUTING_TIE = 1e-5, 1e-3, 1e-3
+
+
+def host_route_check(inst, routes):
+    """(max time-window violation, max capacity excess) of the routes, an
+    order list per vehicle in serve-order ids, recomputed in float64 on
+    the host from the instance's own data (depot 0, customer o at node
+    o + 1, travel time = distance)."""
+    dist = inst.cost_matrix()
+    tw_e = inst.tw_early if inst.tw_early is not None else \
+        np.zeros(len(inst.xy))
+    tw_l = inst.tw_late if inst.tw_late is not None else \
+        np.full(len(inst.xy), np.inf)
+    svc = inst.service if inst.service is not None else np.zeros(len(inst.xy))
+    tw_viol = cap_viol = 0.0
+    for r in routes:
+        if not r:
+            continue
+        t, at = float(tw_e[0]), 0
+        for o in r:
+            node = o + 1
+            t = max(t + dist[at, node], tw_e[node])
+            tw_viol = max(tw_viol, t - tw_l[node])
+            t += svc[node]
+            at = node
+        tw_viol = max(tw_viol, t + dist[at, 0] - tw_l[0])
+        cap_viol = max(cap_viol, float(inst.demand[np.asarray(r) + 1].sum())
+                       - inst.capacity)
+    return tw_viol, cap_viol
+
+
+def _ls_instrumented(stats):
+    """Wrap the solver's _local_search so that every call adds its rounds,
+    evaluation wall and CUDA-event device time to `stats`, and the host
+    readbacks made inside it (local_search.readbacks). Returns a function
+    that restores the original."""
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing import solver as rs
+
+    orig = rs._local_search
+
+    def wrapped(*a, **k):
+        r0 = ls.readbacks
+        try:
+            return orig(*a, round_stats=stats, **k)
+        finally:
+            stats["readbacks"] = stats.get("readbacks", 0) + \
+                ls.readbacks - r0
+
+    rs._local_search = wrapped
+    return lambda: setattr(rs, "_local_search", orig)
+
+
+def _profile_rounds(name, fn, n=3):
+    """One LS round's move evaluation `fn()` (it ends in its readback):
+    its unprofiled wall per call (mean of n after a warm call), then n
+    calls under torch.profiler for the device's busy time and kernel
+    launches per call, its idle share (1 - busy / wall) and the three
+    kernels that take most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3 / n  # ms per call
+    launches = sum(r[2] for r in rows) / n
+    log(f"[routing] {name}: one round's evaluation: wall "
+        f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / (1e3 * wall):.3f}, {launches:.0f} kernel launches")
+    for key, us, count in rows[:3]:
+        log(f"[routing] {name}:   {us / 1e3 / n:8.3f} ms  {count // n:5d} x"
+            f"  {key[:80]}")
+
+
+def _ls_line(stats):
+    n = max(stats.get("rounds", 0), 1)
+    return (f"{stats.get('rounds', 0)} LS rounds, per round: wall "
+            f"{1e3 * stats.get('eval_s', 0.0) / n:.3f} ms, device "
+            f"{stats.get('eval_device_ms', 0.0) / n:.3f} ms (CUDA events "
+            f"from the first launch to the readback), host readbacks "
+            f"{stats.get('readbacks', 0) / n:.3f}")
+
+
+def phase_routing_gh200():
+    """Phase 15, routing-gh200-C1: Solve on the card, 30 s, seed 0, on
+    synth_gh_instance(200, "C", 1) (GHC_200_1 of
+    scripts/bks_benchmark.py). Requires status 0, every customer served
+    exactly once, time windows and capacity kept in a float64 recheck on
+    the host, and a cost at most 0.97 times the port's cheapest insertion
+    (tests/test_bks_regression.py's rule)."""
+    import torch
+
+    from cuopt_torch.io.vrp import solution_cost, synth_gh_instance
+    from cuopt_torch.routing import Solve, SolverSettings
+    from cuopt_torch.routing.construction import cheapest_insertion
+    from cuopt_torch.routing.internal import build_problem
+
+    inst = synth_gh_instance(200, "C", 1)
+    dm = inst.to_data_model()
+    prob = build_problem(dm)
+    t0 = time.perf_counter()
+    base_routes, base_un = cheapest_insertion(prob)
+    base = sum(prob.route_cost(v, r) for v, r in base_routes.items() if r)
+    log(f"[routing] GHC_200_1: cheapest insertion {base:.2f} with "
+        f"{sum(1 for r in base_routes.values() if r)} vehicles, "
+        f"{len(base_un)} unassigned, {time.perf_counter() - t0:.2f} s")
+    s = SolverSettings()
+    s.time_limit = 30
+    s.seed = 0
+    stats = {}
+    restore = _ls_instrumented(stats)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        sol = Solve(dm, s)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    require(sol.get_status() == 0, f"GHC_200_1: status {sol.get_status()}"
+            f" ({sol.get_message()})")
+    cost, used = solution_cost(inst, sol)
+    ref_cost, ref_veh = GHC_200_1
+    log(f"[routing] GHC_200_1: cost {cost:.2f} with {used} vehicles "
+        f"(baseline {ref_cost} with {ref_veh}: gap "
+        f"{100 * (cost - ref_cost) / ref_cost:+.2f}%, "
+        f"{used - ref_veh:+d} vehicles), wall {wall:.2f} s, "
+        f"{_ls_line(stats)}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    table = sol.get_route()
+    served = table[np.isin(table["type"], ["Delivery", "Pickup"])]
+    ids = np.sort(served["route"])  # order ids; order o at node o + 1
+    require(np.array_equal(ids, np.arange(200)),
+            "GHC_200_1: not every customer served exactly once")
+    routes = []
+    for v in np.unique(served["truck_id"]):
+        sub = served[served["truck_id"] == v]
+        order = np.argsort(sub["arrival_stamp"], kind="stable")
+        routes.append(sub["route"][order].tolist())
+    tw_viol, cap_viol = host_route_check(inst, routes)
+    log(f"[routing] GHC_200_1: host float64 recheck: max time-window "
+        f"violation {tw_viol:.3e}, max capacity excess {cap_viol:.3e}")
+    require(tw_viol <= 1e-6 and cap_viol <= 1e-9,
+            "GHC_200_1: a route breaks its time windows or capacity")
+    require(cost <= 0.97 * base,
+            f"GHC_200_1: cost {cost:.2f} above 0.97 x {base:.2f}")
+    require(stats.get("rounds", 0) >= 1, "GHC_200_1: no LS round")
+    # the evaluator of one LS round, on the solution's routes
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing.solver import _pad_len, _routes_to_arrays
+
+    lsp = ls.build_ls_problem(prob, device="cuda")
+    final = {v: [] for v in range(prob.n_fleet)}
+    for v, r in zip(np.unique(served["truck_id"]), routes):
+        final[int(v)] = r
+    R, lens = _routes_to_arrays(prob, final, _pad_len(final, headroom=12))
+    _profile_rounds("GHC_200_1", lambda: ls.to_host(
+        ls.evaluate_moves_topk(lsp, R, lens)))
+
+
+def _same_moves(a, b):
+    """Packed (K, 6) candidate rows of evaluate_moves_topk: deltas within
+    rtol 1e-5 / atol 1e-3, and where the moves differ the delta ties with
+    another candidate of its family within 1e-3. Returns the max delta
+    difference and the count of rows that differ (by ties)."""
+    d = np.abs(a[:, 0] - b[:, 0])
+    require(np.all(d <= ROUTING_ATOL + ROUTING_RTOL * np.abs(b[:, 0])),
+            f"tile deltas differ by up to {d.max():.3e}")
+    require(np.array_equal(a[:, 1], b[:, 1]), "tile move kinds differ")
+    differ = np.flatnonzero(np.any(a[:, 2:] != b[:, 2:], axis=1))
+    for i in differ:
+        fam = a[:, 1] == a[i, 1]
+        require(np.sum(np.abs(a[fam, 0] - a[i, 0]) <= ROUTING_TIE) >= 2,
+                f"tile move {i} differs without a tie: {a[i]} / {b[i]}")
+    return float(d[b[:, 0] < 1e11].max(initial=0.0)), len(differ)
+
+
+def phase_routing_4k():
+    """Phase 16, routing-4k-RC7: synth_gh_instance(4000, "RC", seed=7),
+    scripts/routing_scale_bench.py's instance (fleet 409: the tiled
+    path). build_problem, build_ls_problem on the card,
+    batched_construction, then _local_search(max_rounds=20). Requires
+    every order at most once, every route feasible on the host, and a
+    cost after LS below construction's. Then one tile's
+    evaluate_moves_topk on the card against the port on the CPU from the
+    same inputs."""
+    import torch
+
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing.construction import batched_construction
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.solver import (
+        _LS_GROUP,
+        _grouped_moves,
+        _local_search,
+        _pad_len,
+        _routes_to_arrays,
+    )
+    from cuopt_torch.utils.timer import Timer
+
+    name = "routing-4k-RC7"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    inst = synth_gh_instance(4000, "RC", seed=7)
+    prob = build_problem(inst.to_data_model())
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lsp = ls.build_ls_problem(prob, device="cuda")
+    prob._lsp_cache = lsp
+    torch.cuda.synchronize()
+    t_lsp = time.perf_counter() - t0
+    r0 = ls.readbacks
+    t0 = time.perf_counter()
+    routes, unassigned = batched_construction(prob, lsp)
+    t_con = time.perf_counter() - t0
+    con_rounds = ls.readbacks - r0  # one readback a construction round
+    mem_con = torch.cuda.max_memory_allocated() / 1e9
+
+    def cost(rs):
+        return sum(prob.route_cost(v, r) for v, r in rs.items() if r)
+
+    c_con = cost(routes)
+    log(f"[routing] {name}: {prob.n_serve} orders, fleet {prob.n_fleet}, "
+        f"build_problem {t_build:.2f} s, build_ls_problem {t_lsp:.2f} s, "
+        f"construction {t_con:.2f} s in {con_rounds} rounds: cost "
+        f"{c_con:.2f}, {sum(1 for r in routes.values() if r)} vehicles, "
+        f"{len(unassigned)} unassigned, peak device memory {mem_con:.3f} GB")
+    require(prob.n_fleet > int(1.5 * _LS_GROUP), f"{name}: not tiled")
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    r0 = ls.readbacks
+    t0 = time.perf_counter()
+    routes = _local_search(prob, lsp, routes, Timer(300.0), max_rounds=20,
+                           round_stats=stats)
+    t_ls = time.perf_counter() - t0
+    stats["readbacks"] = ls.readbacks - r0
+    c_ls = cost(routes)
+    log(f"[routing] {name}: LS {t_ls:.2f} s, cost {c_ls:.2f} "
+        f"({100 * (c_ls - c_con) / c_con:+.2f}%), {_ls_line(stats)}, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB")
+    seen = [o for r in routes.values() for o in r]
+    require(len(seen) == len(set(seen)), f"{name}: an order served twice")
+    require(len(seen) + len(unassigned) == prob.n_serve,
+            f"{name}: orders lost")
+    require(all(prob.route_feasible(v, r) for v, r in routes.items() if r),
+            f"{name}: a route is infeasible on the host")
+    require(c_ls < c_con, f"{name}: LS did not lower the cost")
+    require(stats["rounds"] >= 1, f"{name}: no LS round")
+    R, lens = _routes_to_arrays(prob, routes, _pad_len(routes, headroom=12))
+    _profile_rounds(name, lambda: _grouped_moves(prob, lsp, R, lens, 0))
+
+    # one tile on the card and on the CPU, from the same inputs
+    idx = np.arange(_LS_GROUP)
+    lsp_cpu = ls.build_ls_problem(prob, device="cpu")
+    outs = []
+    for p in (lsp, lsp_cpu):
+        sub = ls.subset_ls_problem(p, idx)
+        t0 = time.perf_counter()
+        outs.append(ls.to_host(ls.evaluate_moves_topk(sub, R[idx],
+                                                      lens[idx])))
+        outs.append(time.perf_counter() - t0)
+    err, n_tie = _same_moves(outs[0], outs[2])
+    log(f"[routing] {name}: one tile ({_LS_GROUP} routes, L "
+        f"{R.shape[1]}) on the card ({1e3 * outs[1]:.2f} ms) and on the "
+        f"CPU ({1e3 * outs[3]:.2f} ms): max delta difference {err:.3e}, "
+        f"{n_tie} of {len(outs[0])} candidates differ by a tie")
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1276,6 +1616,19 @@ def main() -> int:
     log(f"[mip] staircase-mip-50k done at "
         f"{time.perf_counter() - t_start:.1f} s")
     total.update({k.name: k.launches for k in pf.KERNELS})
+    del p14, x14, p13, x13
+    torch.cuda.empty_cache()
+
+    # routing reaches no row-pass kernel: the counts stay as they were
+    before = {k.name: k.launches for k in pf.KERNELS}
+    phase_routing_gh200()
+    log(f"[routing] GHC_200_1 done at {time.perf_counter() - t_start:.1f} s")
+    phase_routing_4k()
+    log(f"[routing] routing-4k-RC7 done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    require("pandas" not in sys.modules, "the routing phases loaded pandas")
+    require(all(k.launches == before[k.name] for k in pf.KERNELS),
+            "the routing phases launched a row-pass kernel")
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",

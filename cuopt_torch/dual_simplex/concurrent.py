@@ -9,10 +9,11 @@ stopping the loser, the winner's solution returned.
   - The simplex leg is the native library (bindings.py). It polls the
     halt int every 32 pivots; the ctypes call releases the GIL, so both
     legs run at once.
-  - Grace poll: the PDLP leg first waits up to min(3 s, 0.2 x the time
-    limit) for the simplex, before it touches the device. A cold process
-    builds the CUDA kernels in its first major (about 14 s), during which
-    a small LP's simplex win would sit unnoticed.
+  - Both legs start at once, as in the reference. cuopt_tpu's PDLP leg
+    first waits up to 3 s for the simplex, so that a simplex win is not
+    stuck behind its XLA compile; the port has no compile, and
+    `PdlpSolver.run` checks the stop predicate before it builds the
+    device problem and again once the CUDA kernels are loaded.
   - The PDLP leg is `PdlpSolver.run` itself, with a stop predicate checked
     between majors, so it honours every setting. (cuopt_tpu copies the
     major loop here instead, and the copy ignores detect_infeasibility,
@@ -31,14 +32,14 @@ Where this differs from cuopt_tpu, without changing a result:
     none outlives it.
 
 The result carries a record of the race under "race": the grace allowed
-and waited, the simplex's own status, and the seconds from setting halt
-to the simplex thread's return.
+(0) and the seconds before the PDLP leg started, the simplex's own
+status, and the seconds from setting halt to the simplex thread's
+return.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
 import time
 
@@ -98,18 +99,13 @@ def run_concurrent(prob, settings, timer, device="cuda"):
             "a concurrent solve on 'cuda' needs a CUDA card; pass "
             "device='cpu' to run the PDLP leg on the CPU")
     load_library()  # built here, so that a failed build raises here
-    tl = settings.time_limit
-    grace = min(3.0, 0.2 * tl) if math.isfinite(tl) else 3.0
-    leg = _SimplexLeg(prob, settings, timer)
-    pdlp_raw = pdlp_error = None
     t0 = time.perf_counter()
+    leg = _SimplexLeg(prob, settings, timer)
+    waited = time.perf_counter() - t0  # no grace: PDLP starts at once
+    pdlp_raw = pdlp_error = None
     try:
-        # the grace poll, before the device is touched
-        leg.done.wait(timeout=grace)
-        waited = time.perf_counter() - t0
-        if not leg.won():
-            pdlp_raw = PdlpSolver(prob, settings, device).run(
-                timer, stop=leg.won)
+        pdlp_raw = PdlpSolver(prob, settings, device).run(
+            timer, stop=leg.won)
     except Exception as exc:  # noqa: BLE001 — the simplex may still answer
         pdlp_error = exc
         log.warning(f"Concurrent: the PDLP leg failed ({exc!r}); waiting "
@@ -118,7 +114,7 @@ def run_concurrent(prob, settings, timer, device="cuda"):
     finally:
         halt_latency = leg.stop()
     race = {
-        "grace_s": grace,
+        "grace_s": 0.0,
         "grace_waited_s": waited,
         "simplex_status": None if leg.raw is None else leg.raw["status"],
         "simplex_iterations": None if leg.raw is None
@@ -131,8 +127,7 @@ def run_concurrent(prob, settings, timer, device="cuda"):
         if leg.raw is None:  # both legs failed
             raise pdlp_error
         return {**leg.raw, "race": race, "pdlp_error": repr(pdlp_error)}
-    if pdlp_raw is None or \
-            pdlp_raw["status"] == C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT:
+    if pdlp_raw["status"] == C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT:
         log.info("Concurrent: dual simplex finished first")
         return {**leg.raw, "race": race}
     log.info("Concurrent: PDLP finished first")

@@ -44,7 +44,9 @@ from cuopt_torch.lp.hyper_params import (
     RESTART_NONE,
     RESTART_TRUST_REGION,
 )
-from cuopt_torch.lp.pdhg_fused import fused_pass_supported, fused_row_pass
+from cuopt_torch.kernels.build import BUILDER
+from cuopt_torch.lp.pdhg_fused import (
+    ROW_PASS_ATOMIC, fused_pass_supported, fused_row_pass)
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.sparse import PermutedOp, build_operator
 from cuopt_torch.sparse.ops import operator_from_arrays
@@ -974,9 +976,16 @@ class PdlpSolver:
 
     def run(self, timer: Timer | None = None, stop=None):
         """Solve; returns the raw solution dict. `stop`, when given, is a
-        predicate checked between majors, where the time limit is: once
-        it returns True the run ends with status CONCURRENT_LIMIT (the
-        concurrent race's halt, dual_simplex/concurrent.py)."""
+        predicate checked before the device problem is built, once the
+        CUDA kernels are loaded, and between majors, where the time limit
+        is: once it returns True the run ends with status
+        CONCURRENT_LIMIT (the concurrent race's halt,
+        dual_simplex/concurrent.py); stopped before the first major, the
+        result holds only the status and 0 iterations."""
+        stopped = {"status": C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT,
+                   "iterations": 0, "attempts": 0}
+        if stop is not None and stop():
+            return stopped
         maybe_start_profile()
         settings = self.settings
         prob = self.prob
@@ -985,6 +994,11 @@ class PdlpSolver:
         t_run0 = time.perf_counter()
         dev = build_device_problem(prob, self.hp, self.dtype,
                                    settings.operator_kind, self.device)
+        if stop is not None and self.device.type == "cuda" and \
+                _use_fused(dev, self.dtype, self.cfg):
+            BUILDER.library(ROW_PASS_ATOMIC.source)  # nvcc on a cold start
+            if stop():
+                return stopped
         if settings.warm_start_data is not None:
             from cuopt_torch.lp.warm_start import restore_state
 

@@ -27,9 +27,13 @@ M z = 0, l <= z <= u, logical column j>=n is -e_{j-n}):
     + sum_{t_j continuous} [ a_j >= 0 ? a_j : f0 (-a_j)/(1-f0) ] t_j
     >= f0 .
 
-  All t-space coefficients are nonnegative, so small ones may be
-  DROPPED (a valid weakening) before substituting t back and folding
-  the slack part through s = A x into a pure x-space row  w x >= rhs.
+  t_j counts as integer only when z_j is an integer column at an
+  integral bound (z_j = 0.5 + t_j is not an integer for integer t_j).
+  All t-space coefficients are nonnegative, so dropping a small one
+  TIGHTENS the cut by up to coef_j (u_j - l_j): a cut is kept only if
+  that sum, and the same sum for the x-space terms dropped after
+  substituting t back and folding the slack part through s = A x into
+  a pure x-space row  w x >= rhs, stays below _MAX_DROPPED.
 
 Cuts are appended as one-sided constraints (rhs <= row <= +inf) and the
 augmented problem drives the B&B's node relaxations; heuristics keep
@@ -48,8 +52,9 @@ from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
 from cuopt_torch.lp.settings import PDLPSolverSettings
 
 _EPS_F0 = 1e-4       # reject almost-integral tableau rows
-_EPS_COEF = 1e-11    # drop tiny (valid weakening, see module doc)
+_EPS_COEF = 1e-11    # drop tiny ones, if bounded (see gmi_cuts)
 _MAX_DYNAMIC = 1e7   # reject numerically wild cuts
+_MAX_DROPPED = 1e-9  # most a cut may be tightened by its dropped terms
 
 
 def _csr_to_dense(prob):
@@ -114,6 +119,20 @@ def gmi_cuts(prob, x, s, vstat, is_int, max_cuts=32, int_tol=1e-6):
 
     nb_low = vstat == 0
     nb_up = vstat == 1
+    # t_j = z_j - l_j (or u_j - z_j) is integral only if the active bound
+    # is: an integer column at a fractional bound takes g_cont
+    active = np.where(nb_low, lz, np.where(nb_up, uz, 0.0))
+    # t_j's range; a slack's comes from its row's activity range too
+    lo_x, hi_x = prob.variable_lower_bounds, prob.variable_upper_bounds
+    with np.errstate(invalid="ignore"):
+        int_shift = np.abs(active - np.round(active)) <= int_tol
+        a_lo = np.where(A != 0.0, A * lo_x, 0.0)
+        a_hi = np.where(A != 0.0, A * hi_x, 0.0)
+        act_lo = np.minimum(a_lo, a_hi).sum(axis=1)
+        act_hi = np.maximum(a_lo, a_hi).sum(axis=1)
+        t_range = np.minimum(uz, np.concatenate([hi_x, act_hi])) - \
+            np.maximum(lz, np.concatenate([lo_x, act_lo]))
+        x_mag = np.maximum(np.abs(lo_x), np.abs(hi_x))
     out_rows, out_rhs = [], []
     for q, k in enumerate(cand):
         beta = z[k]
@@ -132,19 +151,26 @@ def gmi_cuts(prob, x, s, vstat, is_int, max_cuts=32, int_tol=1e-6):
         g_int = np.where(fj <= f0 + 1e-12, fj,
                          f0 * (1.0 - fj) / (1.0 - f0))
         g_cont = np.where(a >= 0.0, a, f0 * (-a) / (1.0 - f0))
-        coef = np.where(zint, g_int, g_cont)
+        coef = np.where(zint & int_shift, g_int, g_cont)
         coef[basic] = 0.0
         coef[k] = 0.0
-        coef = np.where(np.abs(coef) < _EPS_COEF, 0.0, coef)
+        # bound shift needs finite bounds wherever the cut has weight,
+        # dropped weight included
+        nz = coef != 0.0
+        if np.any(nz & nb_low & ~np.isfinite(lz)) or \
+                np.any(nz & nb_up & ~np.isfinite(uz)):
+            continue
+        # dropping coef_j t_j (t_j <= u_j - l_j) tightens the cut by up
+        # to coef_j (u_j - l_j): keep the cut only if that is negligible
+        tiny = nz & (np.abs(coef) < _EPS_COEF)
+        if np.sum(np.abs(coef[tiny]) * t_range[tiny]) > _MAX_DROPPED:
+            continue
+        coef = np.where(tiny, 0.0, coef)
         nz = coef != 0.0
         if not nz.any():
             continue
         mx, mn = np.max(coef[nz]), np.min(coef[nz])
         if mx / max(mn, 1e-300) > _MAX_DYNAMIC or mx > 1e8:
-            continue
-        # bound shift needs finite bounds wherever the cut has weight
-        if np.any(nz & nb_low & ~np.isfinite(lz)) or \
-                np.any(nz & nb_up & ~np.isfinite(uz)):
             continue
         # substitute t_j = z_j - l_j (lower) / u_j - z_j (upper):
         #   sum coef t = w_z . z - sum_low coef l + sum_up coef u >= f0
@@ -154,7 +180,11 @@ def gmi_cuts(prob, x, s, vstat, is_int, max_cuts=32, int_tol=1e-6):
         rhs = f0 + float(np.sum(bshift))
         # fold slack coefficients through s = A x
         w_x = w_z[:n] + w_z[n:] @ A
-        w_x = np.where(np.abs(w_x) < _EPS_COEF, 0.0, w_x)
+        # dropping w_j x_j moves the row by up to |w_j| max(|l_j|, |u_j|)
+        tiny_x = (w_x != 0.0) & (np.abs(w_x) < _EPS_COEF)
+        if np.sum(np.abs(w_x[tiny_x]) * x_mag[tiny_x]) > _MAX_DROPPED:
+            continue
+        w_x = np.where(tiny_x, 0.0, w_x)
         if not np.any(w_x):
             continue
         scale = np.max(np.abs(w_x))

@@ -2,9 +2,10 @@
 
 The race runs the native dual simplex on a thread beside PDLP. Which leg
 wins depends on the clock, so each test fixes the winner: a small LP that
-the simplex solves inside the grace poll, or a stub simplex that blocks
-until it is halted, so that PDLP wins. Every race here sets a time limit
-of at most 5 s, so the grace poll waits at most 1 s.
+the simplex solves long before PDLP, or a stub simplex that blocks until
+it is halted, so that PDLP wins. cuopt_tpu's PDLP leg first waits up to
+3 s for the simplex (its grace poll, min(3 s, 0.2 x the time limit));
+the port starts both legs at once.
 """
 
 import ctypes
@@ -45,7 +46,7 @@ def _settings(S, tol=1e-4, **kw):
     s = S()
     s.log_to_console = False
     s.iteration_limit = 20000
-    s.time_limit = 5.0  # grace min(3 s, 0.2 x 5 s) = 1 s
+    s.time_limit = 5.0  # cuopt_tpu's grace: min(3 s, 0.2 x 5 s) = 1 s
     s.set_optimality_tolerance(tol)
     for k, v in kw.items():
         setattr(s, k, v)
@@ -99,9 +100,10 @@ def test_simplex_wins_inside_the_grace():
     assert [i["solved_by"] for i in infos] == ["dual_simplex"] * 2
     assert sols[0].get_primal_objective() == sols[1].get_primal_objective()
     race = infos[0]["race"]
-    assert race["grace_s"] == 1.0 and race["grace_waited_s"] < 1.0
+    # no grace: the PDLP leg ran beside the simplex and was stopped
+    assert race["grace_s"] == 0
     assert race["simplex_status"] == C.CUOPT_TERIMINATION_STATUS_OPTIMAL
-    assert "compile_s" not in infos[0]  # PDLP never started
+    assert "compile_s" not in infos[0]  # the simplex's answer came back
     assert not _simplex_threads()
 
 
@@ -114,7 +116,7 @@ def test_pdlp_wins_against_a_blocked_simplex(monkeypatch):
     monkeypatch.setattr(JB, "solve_lp_simplex", _blocked_simplex(j_seen))
     prob = t_generate(384, 384, 5, seed=11, band=64)
     s = _settings(TSettings, 1e-8)
-    # an unlimited timer: only the grace depends on the time limit
+    # an unlimited timer, so that only the halt ends the simplex
     raw = TC.run_concurrent(prob, s, TTimer(), "cpu")
     alone = PdlpSolver(prob, s, "cpu").run(TTimer())
     assert raw["status"] == alone["status"] == \
@@ -126,7 +128,10 @@ def test_pdlp_wins_against_a_blocked_simplex(monkeypatch):
     assert raw["primal_objective"] == alone["primal_objective"]
     assert seen["saw_halt"] and not seen["thread"].is_alive()
     race = raw["race"]
-    assert race["grace_waited_s"] >= 0.99
+    # the PDLP leg started without waiting for the blocked simplex (the
+    # solve itself takes longer than this bound on the CPU)
+    assert race["grace_s"] == 0 and race["grace_waited_s"] < 0.5
+    assert raw["solve_time"] > race["grace_waited_s"]
     assert race["simplex_status"] == \
         C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
     assert not _simplex_threads()
@@ -156,9 +161,15 @@ def test_race_honours_pdlp_settings(monkeypatch):
 
 
 def test_stop_predicate_ends_the_run():
+    """`stop` is checked before the device problem is built (a simplex
+    that has already won costs PDLP nothing) and between majors."""
     prob = t_generate(128, 128, 4, seed=1, band=32)
     solver = PdlpSolver(prob, _settings(TSettings), "cpu")
     raw = solver.run(stop=lambda: True)
+    assert raw["status"] == C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
+    assert raw["iterations"] == 0 and "primal_solution" not in raw
+    calls = []
+    raw = solver.run(stop=lambda: calls.append(1) or len(calls) > 1)
     assert raw["status"] == C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
     assert raw["iterations"] == solver.hp.major_iteration
 
@@ -251,7 +262,7 @@ def test_both_legs_failing_raises(monkeypatch):
 def test_cuda_without_a_card_raises_before_the_race(monkeypatch):
     """The default method is Concurrent: without a card a solve that does
     not ask for the CPU raises, even on an LP the simplex would solve
-    inside the grace, and no simplex thread starts."""
+    at once, and no simplex thread starts."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     legs = []

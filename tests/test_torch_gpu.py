@@ -383,3 +383,49 @@ def test_solve_mip_on_card(cuda):
     assert sol._raw["fj"]["device"].startswith("cuda")
     assert sol.get_primal_objective() <= float(
         p.objective_coefficients @ x_hat) + 1e-6
+
+
+def test_routing_evaluators_on_card(cuda):
+    """The routing move evaluators on the card against the port on the
+    CPU, from the same routes: the tiled (vmapped) evaluation and the
+    insertion scores, deltas within rtol 1e-5 / atol 1e-3."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing.construction import batched_construction
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.solver import (
+        _grouped_moves,
+        _pad_len,
+        _routes_to_arrays,
+    )
+
+    prob = build_problem(synth_gh_instance(200, "RC", seed=2)
+                         .to_data_model())
+    gpu = ls.build_ls_problem(prob, device=cuda)
+    cpu = ls.build_ls_problem(prob, device="cpu")
+    routes, _ = batched_construction(prob, cpu)
+    R, lens = _routes_to_arrays(prob, routes, _pad_len(routes, headroom=12))
+    a = _grouped_moves(prob, gpu, R, lens, 0, group=8)
+    b = _grouped_moves(prob, cpu, R, lens, 0, group=8)
+    np.testing.assert_allclose(a[:, 0], b[:, 0], rtol=1e-5, atol=1e-3)
+    cand = np.arange(0, prob.n_serve, 7)
+    x = ls.to_host(ls.evaluate_insertions(gpu, R, lens, cand))
+    y = ls.to_host(ls.evaluate_insertions(cpu, R, lens, cand))
+    assert np.array_equal(x >= ls.BIG / 2, y >= ls.BIG / 2)
+    np.testing.assert_allclose(x[x < ls.BIG / 2], y[y < ls.BIG / 2],
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_routing_solve_on_card(cuda):
+    """Solve on its default device, the card: every order served once."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing import Solve, SolverSettings
+
+    inst = synth_gh_instance(60, "C", seed=4)
+    s = SolverSettings()
+    s.set_time_limit(3.0)
+    sol = Solve(inst.to_data_model(), s)
+    assert sol.get_status() == 0, sol.get_message()
+    table = sol.get_route()
+    served = table[table["type"] == "Delivery"]["route"]
+    assert np.array_equal(np.sort(served), np.arange(60))

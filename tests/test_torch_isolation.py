@@ -11,6 +11,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,3 +101,40 @@ def test_default_device_is_cuda():
     ms.log_to_console = False
     with pytest.raises((RuntimeError, AssertionError)):
         solve_mip(p, ms)
+    # a 5-order routing instance, which the host heuristics alone could
+    # solve, and a waypoint graph
+    from cuopt_torch.distance_engine import WaypointMatrix
+    from cuopt_torch.routing import DataModel, Solve
+
+    dm = DataModel(6, 2)
+    dm.add_cost_matrix(np.ones((6, 6)) - np.eye(6))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        Solve(dm)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        WaypointMatrix([0, 1, 2], [1, 0], [1.0, 1.0])
+
+
+def test_cpu_routing_solve_loads_no_jax_or_pandas():
+    """A routing solve on the CPU imports neither JAX, cuopt_tpu nor
+    pandas (the machine with the card has no pandas): the answer is a
+    RouteTable of numpy columns."""
+    code = (
+        "import sys\n"
+        "from cuopt_torch.io.vrp import solution_cost, synth_gh_instance\n"
+        "from cuopt_torch.routing import Solve, SolverSettings\n"
+        "inst = synth_gh_instance(30, 'C', seed=1)\n"
+        "s = SolverSettings(); s.set_time_limit(2.0)\n"
+        "sol = Solve(inst.to_data_model(), s, device='cpu')\n"
+        "assert sol.get_status() == 0, sol.get_message()\n"
+        "assert solution_cost(inst, sol)[0] > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'cuopt_tpu', 'pandas')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1",
+                              "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
