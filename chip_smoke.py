@@ -70,7 +70,7 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      error, and the wall must stay within the limit + 20 s. One FJ chunk
      at 50k is then timed on its own (wall and CUDA events);
   15. routing-gh200-C1: Solve on synth_gh_instance(200, "C", 1) (GHC_200_1
-     of scripts/bks_benchmark.py), 30 s, seed 0: status 0, every customer
+     of scripts/bks_benchmark.py), 15 s, seed 0: status 0, every customer
      served exactly once, time windows and capacity rechecked on the host
      in float64, cost at most 0.97 x the port's cheapest insertion; cost
      and vehicles beside scripts/bks_synth_baseline.json's 2439.01 and
@@ -83,7 +83,29 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      one tile's evaluate_moves_topk on the card against the port on the
      CPU, deltas within rtol 1e-5 / atol 1e-3 and the same moves but for
      ties within 1e-3. The routing phases launch no row-pass kernel and
-     load no pandas.
+     load no pandas;
+  17. surface: linear_programming.Solve with SolverSettings built by
+     set_parameter (PDLP, the tolerances) and float32 on staircase-50k,
+     OPTIMAL within 1e-3 of HiGHS with every attempt through
+     row_pass_atomic; staircase-50k written as an MPS file (about 400k
+     nonzeros), read back by the native parser (timed) and solved by
+     `python -m cuopt_torch.cli` at its defaults (Concurrent, float64),
+     OPTIMAL within 1e-3, its .sol read back and rechecked on the host;
+     twelve-binaries through the CLI (integer markers), OPTIMAL at -82;
+     the C ABI library in this process through ctypes: staircase-2k by
+     cuOptCreateProblem and the dual simplex within 1e-9 of HiGHS,
+     staircase-50k by cuOptReadProblem and PDLP within 1e-3; the C program
+     csrc/c_api_check.c as a process (when the Python has a shared
+     libpython), with the in-process answer to its LP;
+  18. service: `python -m cuopt_torch.server -d 1`, its worker on the
+     card (listed by nvidia-smi): staircase-50k's LP as JSON (through
+     shared memory) and as msgpack+zlib, OPTIMAL within 1e-3, submit to
+     result beside the reported solve time; twelve-binaries at -82 with
+     an incumbent; GHC_200_1 for 10 s, every order once, time windows and
+     capacity rechecked on the host, cost at most 0.97 x cheapest
+     insertion; 410 for an abort, 404 for an unknown id, 415 for pickle;
+     an LP through the thin client and one through cuopt_sh; no process
+     of the server left after SIGTERM.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -99,8 +121,10 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
@@ -241,17 +265,28 @@ def phase_device():
     log(f"host compiler: {gxx.stdout.splitlines()[0] if gxx.stdout else '?'}")
     # the CUDA kernels (nvcc) and the host simplex (g++) build side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        cuda_build = pool.submit(BUILDER.build, "row_pass")
-        host_build = pool.submit(BUILDER.build_simplex)
-        built, simplex_built = cuda_build.result(), host_build.result()
+    # and so do the MPS parser (g++) and the C ABI with its C caller
+    # (gcc; the caller links libpython, which a static Python lacks)
+    import sysconfig
 
-    def took(s):
-        return "cached" if s is None else f"{s:.2f} s"
+    shared = bool(sysconfig.get_config_var("Py_ENABLE_SHARED"))
+    with ThreadPoolExecutor(4) as pool:
+        builds = {
+            "row_pass (nvcc)": pool.submit(BUILDER.build, "row_pass"),
+            "simplex (g++)": pool.submit(BUILDER.build_simplex),
+            "MPS parser (g++)": pool.submit(BUILDER.build_mps),
+            ("C ABI and its C caller (gcc)" if shared else "C ABI (gcc)"):
+                pool.submit(BUILDER.build_check if shared
+                            else BUILDER.build_capi),
+        }
+        took = {name: f.result() for name, f in builds.items()}
 
-    log(f"build: {time.perf_counter() - t0:.2f} s wall, row_pass (nvcc) "
-        f"{took(built)}, simplex (g++) {took(simplex_built)}")
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, " + ", ".join(
+        f"{name} {'cached' if s is None else f'{s:.2f} s'}"
+        for name, s in took.items()))
     for name, out in BUILDER.log.items():
+        if name != "row_pass":
+            continue
         for fn, r in ptxas_report(out).items():
             log(f"  ptxas {name}: {fn}: {r['registers']} registers, "
                 f"{r['smem']} bytes static smem, {r['spill_stores']} / "
@@ -1330,7 +1365,7 @@ def _ls_line(stats):
 
 
 def phase_routing_gh200():
-    """Phase 15, routing-gh200-C1: Solve on the card, 30 s, seed 0, on
+    """Phase 15, routing-gh200-C1: Solve on the card, 15 s, seed 0, on
     synth_gh_instance(200, "C", 1) (GHC_200_1 of
     scripts/bks_benchmark.py). Requires status 0, every customer served
     exactly once, time windows and capacity kept in a float64 recheck on
@@ -1353,7 +1388,7 @@ def phase_routing_gh200():
         f"{sum(1 for r in base_routes.values() if r)} vehicles, "
         f"{len(base_un)} unassigned, {time.perf_counter() - t0:.2f} s")
     s = SolverSettings()
-    s.time_limit = 30
+    s.time_limit = 15  # cut from 30 s to keep the smoke near 8 minutes
     s.seed = 0
     stats = {}
     restore = _ls_instrumented(stats)
@@ -1516,6 +1551,632 @@ def phase_routing_4k():
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------- phases 17-18
+SURFACE_RTOL = 1e-3  # a surface's LP answer against HiGHS
+SERVICE_DEADLINE = 180.0  # seconds any one request may take end to end
+
+
+def write_mps(prob, path):
+    """Free-format MPS of a one-sided-row problem (rows L, G or E, columns
+    with integer MARKERs, BOUNDS), numbers by repr so that they read back
+    exactly. cuopt_tpu has no MPS writer, so the package has none either;
+    the smoke keeps its own."""
+    n, m = prob.n_constraints, prob.n_variables
+    lc, uc = prob.constraint_lower_bounds, prob.constraint_upper_bounds
+    require(not np.any(np.isfinite(lc) & np.isfinite(uc) & (lc != uc)),
+            "write_mps takes one-sided or equality rows")
+    kind = np.where(lc == uc, "E", np.where(np.isfinite(uc), "L", "G"))
+    rhs = np.where(np.isfinite(uc), uc, lc)
+    lines = ["NAME SMOKE", "ROWS", " N OBJ"]
+    lines += [f" {k} R{i}" for i, k in enumerate(kind)]
+    lines.append("COLUMNS")
+    rows = np.repeat(np.arange(n), np.diff(prob.offsets))
+    order = np.argsort(prob.indices, kind="stable")
+    cols, crow = prob.indices[order], rows[order]
+    cval = np.asarray(prob.values, float)[order]
+    starts = np.searchsorted(cols, np.arange(m + 1))
+    c = np.asarray(prob.objective_coefficients, float)
+    integer = np.asarray(prob.variable_types) == "I"
+    in_int = False
+    for j in range(m):
+        if integer[j] != in_int:
+            in_int = not in_int
+            lines.append(f" M{j} 'MARKER' "
+                         f"'{'INTORG' if in_int else 'INTEND'}'")
+        lines.append(f" C{j} OBJ {float(c[j])!r}")
+        lines += [f" C{j} R{r} {float(v)!r}"
+                  for r, v in zip(crow[starts[j]:starts[j + 1]],
+                                  cval[starts[j]:starts[j + 1]])]
+    if in_int:
+        lines.append(f" M{m} 'MARKER' 'INTEND'")
+    lines.append("RHS")
+    lines += [f" RHS R{i} {float(v)!r}" for i, v in enumerate(rhs) if v]
+    lines.append("BOUNDS")
+    for j, (lo, hi) in enumerate(zip(prob.variable_lower_bounds,
+                                     prob.variable_upper_bounds)):
+        require(np.isfinite(lo), "write_mps takes finite lower bounds")
+        if lo:
+            lines.append(f" LO BND C{j} {float(lo)!r}")
+        if np.isfinite(hi):
+            lines.append(f" UP BND C{j} {float(hi)!r}")
+    lines.append("ENDATA")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def lp_payload(prob, **solver_config):
+    """The solver service's LP JSON payload of a problem."""
+    def bounds(a):
+        return ["inf" if v == np.inf else "ninf" if v == -np.inf
+                else float(v) for v in np.asarray(a, float)]
+
+    out = {
+        "csr_constraint_matrix": {
+            "offsets": np.asarray(prob.offsets).tolist(),
+            "indices": np.asarray(prob.indices).tolist(),
+            "values": np.asarray(prob.values, float).tolist()},
+        "objective_data": {"coefficients": np.asarray(
+            prob.objective_coefficients, float).tolist()},
+        "constraint_bounds": {
+            "lower_bounds": bounds(prob.constraint_lower_bounds),
+            "upper_bounds": bounds(prob.constraint_upper_bounds)},
+        "variable_bounds": {
+            "lower_bounds": bounds(prob.variable_lower_bounds),
+            "upper_bounds": bounds(prob.variable_upper_bounds)},
+        "solver_config": dict(solver_config),
+    }
+    if np.any(np.asarray(prob.variable_types) == "I"):
+        out["variable_types"] = np.asarray(prob.variable_types).tolist()
+    return out
+
+
+def _entry_env(base=None):
+    """The environment of a process of the port's entry points: on their
+    default device, the card."""
+    env = dict(os.environ if base is None else base)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    env.pop("CUOPT_TORCH_DEVICE", None)
+    return env
+
+
+def _cli(name, args, timeout=600):
+    """python -m cuopt_torch.cli args: (wall, {key: value of its printed
+    lines})."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cuopt_torch.cli", *args,
+                        "--log_to_console", "false"], cwd=ROOT,
+                       env=_entry_env(), capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"CLI {name}: exit {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+    lines = dict(line.split(":", 1) for line in r.stdout.splitlines()
+                 if ":" in line)
+    return wall, {k.strip(): v.strip() for k, v in lines.items()}
+
+
+def _capi_create(lib, prob):
+    """cuOptCreateProblem on a one-sided-row problem: (status, handle,
+    the arrays, which must outlive the handle's use)."""
+    import ctypes
+
+    P = ctypes.POINTER
+    lc, uc = prob.constraint_lower_bounds, prob.constraint_upper_bounds
+    arrays = [
+        np.ascontiguousarray(prob.objective_coefficients, np.float64),
+        np.ascontiguousarray(prob.offsets, np.int32),
+        np.ascontiguousarray(prob.indices, np.int32),
+        np.ascontiguousarray(prob.values, np.float64),
+        np.where(lc == uc, "E", np.where(np.isfinite(uc), "L", "G"))
+        .astype("S1").tobytes(),
+        np.ascontiguousarray(np.where(np.isfinite(uc), uc, lc), np.float64),
+        np.ascontiguousarray(prob.variable_lower_bounds, np.float64),
+        np.ascontiguousarray(prob.variable_upper_bounds, np.float64),
+        np.asarray(prob.variable_types).astype("S1").tobytes(),
+    ]
+
+    def ptr(a):
+        if isinstance(a, bytes):
+            return a
+        ct = ctypes.c_int32 if a.dtype == np.int32 else ctypes.c_double
+        return a.ctypes.data_as(P(ct))
+
+    handle = ctypes.c_void_p()
+    status = lib.cuOptCreateProblem(
+        prob.n_constraints, prob.n_variables, 1, 0.0,
+        *(ptr(a) for a in arrays), ctypes.byref(handle))
+    return status, handle, arrays
+
+
+def _capi_solve(lib, handle, method):
+    """cuOptSolve with `method`: (termination status, objective,
+    seconds)."""
+    import ctypes
+
+    settings, sol = ctypes.c_void_p(), ctypes.c_void_p()
+    require(lib.cuOptCreateSolverSettings(ctypes.byref(settings)) == 0,
+            "C ABI: cuOptCreateSolverSettings")
+    for name, value in ((b"method", str(method).encode()),
+                        (b"log_to_console", b"false")):
+        require(lib.cuOptSetParameter(settings, name, value) == 0,
+                f"C ABI: cuOptSetParameter {name}")
+    t0 = time.perf_counter()
+    st = lib.cuOptSolve(handle, settings, ctypes.byref(sol))
+    wall = time.perf_counter() - t0
+    require(st == 0, f"C ABI: cuOptSolve returned {st}")
+    term, obj = ctypes.c_int32(), ctypes.c_double()
+    lib.cuOptGetTerminationStatus(sol, ctypes.byref(term))
+    lib.cuOptGetObjectiveValue(sol, ctypes.byref(obj))
+    lib.cuOptDestroySolution(ctypes.byref(sol))
+    lib.cuOptDestroySolverSettings(ctypes.byref(settings))
+    return term.value, obj.value, wall
+
+
+def phase_surface(p50, p2k, highs_2k, workdir):
+    """Phase 17: the user-facing surface on the card. The façade
+    (linear_programming.Solve with registry settings, float32 PDLP) on
+    staircase-50k through row_pass_atomic; the CLI as a process at its
+    defaults (Concurrent, float64) on staircase-50k written as MPS, with
+    the .sol read back, and on twelve-binaries; the C ABI in this process
+    through ctypes (staircase-2k by cuOptCreateProblem and the dual
+    simplex, staircase-50k by cuOptReadProblem and PDLP); the standalone C
+    caller csrc/c_api_check.c as a process. Returns the kernels' launches
+    in the façade's solve."""
+    import ctypes
+    import sysconfig
+
+    import torch
+
+    from cuopt_torch import c_api_embed
+    from cuopt_torch import constants as C
+    from cuopt_torch.io import parse_mps
+    from cuopt_torch.kernels.build import BUILDER, embed_env
+    from cuopt_torch.linear_programming import Solve, SolverSettings
+    from cuopt_torch.lp import pdhg_fused as pf
+
+    highs = HIGHS_OBJ[50_000]
+
+    def rel(obj, ref):
+        return abs(obj - ref) / abs(ref)
+
+    # the façade
+    s = SolverSettings()
+    for name, value in (
+            (C.CUOPT_METHOD, C.CUOPT_METHOD_PDLP),
+            (C.CUOPT_ITERATION_LIMIT, 20000),
+            (C.CUOPT_LOG_TO_CONSOLE, "false"),
+            *((t, 1e-4) for t in (
+                C.CUOPT_ABSOLUTE_PRIMAL_TOLERANCE,
+                C.CUOPT_RELATIVE_PRIMAL_TOLERANCE,
+                C.CUOPT_ABSOLUTE_DUAL_TOLERANCE,
+                C.CUOPT_RELATIVE_DUAL_TOLERANCE,
+                C.CUOPT_ABSOLUTE_GAP_TOLERANCE,
+                C.CUOPT_RELATIVE_GAP_TOLERANCE))):
+        s.set_parameter(name, value)
+    s.pdlp.dtype = "float32"
+    pf.reset_counts()
+    t0 = time.perf_counter()
+    sol = Solve(p50, s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in pf.KERNELS}
+    obj = sol.get_primal_objective()
+    info = sol.get_additional_termination_information()
+    log(f"[surface] facade staircase-50k (float32 PDLP): "
+        f"{sol.get_termination_reason()}, objective {obj:.6f} (rel err "
+        f"{rel(obj, highs):.2e}), {info['iterations']} steps, "
+        f"{info['attempts']} attempts, wall {wall:.3f} s, launches "
+        f"{launches}")
+    require(sol.get_termination_reason() == "Optimal", "facade: status")
+    require(rel(obj, highs) <= SURFACE_RTOL, "facade: objective")
+    require(launches["row_pass_atomic"] == info["attempts"] > 0,
+            "facade: not every attempt through row_pass_atomic")
+
+    # the CLI on staircase-50k, at its defaults
+    mps50 = os.path.join(workdir, "staircase-50k.mps")
+    t0 = time.perf_counter()
+    write_mps(p50, mps50)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = parse_mps(mps50)
+    t_parse = time.perf_counter() - t0
+    def csr(p):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix((p.values, p.indices, p.offsets),
+                             shape=(p.n_constraints, p.n_variables))
+
+    require(parsed.nnz == p50.nnz and (csr(parsed) != csr(p50)).nnz == 0
+            and np.array_equal(parsed.objective_coefficients,
+                               p50.objective_coefficients),
+            "MPS: the 50k staircase read back")
+    log(f"[surface] staircase-50k.mps: {os.path.getsize(mps50) / 1e6:.1f} "
+        f"MB, {p50.nnz} nonzeros, written in {t_write:.2f} s, native "
+        f"parse {t_parse:.3f} s")
+    sol_path = os.path.join(workdir, "staircase-50k.sol")
+    wall, out = _cli("staircase-50k", [mps50, "--solution_file", sol_path])
+    obj = float(out["Objective"])
+    log(f"[surface] CLI staircase-50k (defaults: Concurrent, float64): "
+        f"{out['Status']}, objective {obj:.6f} (rel err "
+        f"{rel(obj, highs):.2e}), solve {out.get('Time')}, wall "
+        f"{wall:.2f} s")
+    require(out["Status"] == "Optimal", "CLI staircase-50k: status")
+    require(rel(obj, highs) <= SURFACE_RTOL, "CLI staircase-50k: objective")
+    with open(sol_path) as f:
+        lines = f.read().splitlines()
+    require(lines[0] == "# Status: Optimal" and
+            len(lines) == 2 + p50.n_variables,
+            "CLI staircase-50k: .sol file")
+    x = np.array([float(v.split()[1]) for v in lines[2:]])
+    x_obj = float(p50.objective_coefficients @ x)
+    res, b_norm = host_primal_residual(p50, x)
+    log(f"[surface] CLI staircase-50k .sol: objective of its x "
+        f"{x_obj:.6f}, host primal residual {res:.3e} (|b| {b_norm:.3e})")
+    require(rel(x_obj, highs) <= SURFACE_RTOL, "CLI .sol: objective of x")
+    require(res <= 1e-4 + 1e-4 * b_norm, "CLI .sol: primal residual")
+
+    # the CLI on twelve-binaries (integer markers)
+    mps12 = os.path.join(workdir, "twelve-binaries.mps")
+    write_mps(twelve_binaries(), mps12)
+    wall, out = _cli("twelve-binaries", [mps12])
+    log(f"[surface] CLI twelve-binaries: {out['Status']}, objective "
+        f"{out['Objective']}, wall {wall:.2f} s")
+    require(out["Status"] == "Optimal" and float(out["Objective"]) == -82,
+            "CLI twelve-binaries")
+
+    # the C ABI in this process (built by phase 1)
+    t0 = time.perf_counter()
+    lib = c_api_embed.load_library()
+    log(f"[surface] C ABI library loaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    st, handle, keep = _capi_create(lib, p2k)
+    require(st == 0, f"C ABI: cuOptCreateProblem returned {st}")
+    term, obj, wall = _capi_solve(lib, handle, C.CUOPT_METHOD_DUAL_SIMPLEX)
+    log(f"[surface] C ABI staircase-2k (cuOptCreateProblem, dual "
+        f"simplex): status {term}, objective {obj:.10f} (HiGHS "
+        f"{highs_2k:.10f}, rel err {rel(obj, highs_2k):.2e}), "
+        f"{wall:.3f} s")
+    require(term == C.CUOPT_TERIMINATION_STATUS_OPTIMAL and
+            rel(obj, highs_2k) <= 1e-9, "C ABI staircase-2k")
+    lib.cuOptDestroyProblem(ctypes.byref(handle))
+    del keep
+    handle = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    st = lib.cuOptReadProblem(mps50.encode(), ctypes.byref(handle))
+    t_read = time.perf_counter() - t0
+    require(st == 0, f"C ABI: cuOptReadProblem returned {st}")
+    term, obj, wall = _capi_solve(lib, handle, C.CUOPT_METHOD_PDLP)
+    log(f"[surface] C ABI staircase-50k (cuOptReadProblem {t_read:.3f} s, "
+        f"PDLP float64): status {term}, objective {obj:.6f} (rel err "
+        f"{rel(obj, highs):.2e}), {wall:.3f} s")
+    require(term == C.CUOPT_TERIMINATION_STATUS_OPTIMAL and
+            rel(obj, highs) <= SURFACE_RTOL, "C ABI staircase-50k")
+    lib.cuOptDestroyProblem(ctypes.byref(handle))
+
+    # the standalone C caller, which links libpython
+    if not sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        log("[surface] c_api_check: not run: this Python has no shared "
+            "libpython (Py_ENABLE_SHARED is 0) to link a C caller against")
+        return launches
+    exe = BUILDER.c_api_check()
+    t0 = time.perf_counter()
+    r = subprocess.run([str(exe), str(C.CUOPT_METHOD_DUAL_SIMPLEX)],
+                       env=_entry_env(embed_env()),
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"c_api_check: exit {r.returncode}: "
+                               f"{r.stdout[-500:]} {r.stderr[-1500:]}")
+    fields = r.stdout.split()
+    status, objective = int(fields[1]), float(fields[3])
+    # the same LP through the library in this process
+    from cuopt_torch.problem.data_model import OptimizationProblem
+
+    two_rows = OptimizationProblem.from_dense(
+        np.array([[3.0, 4.0], [2.7, 10.1]]), c=np.array([-0.2, -0.1]),
+        constraint_lower=np.full(2, -np.inf),
+        constraint_upper=np.array([5.4, 4.9]), variable_lower=np.zeros(2),
+        variable_upper=np.full(2, np.inf))
+    st, handle, keep = _capi_create(lib, two_rows)
+    require(st == 0, "C ABI: the two-row LP")
+    term, obj, _ = _capi_solve(lib, handle, C.CUOPT_METHOD_DUAL_SIMPLEX)
+    lib.cuOptDestroyProblem(ctypes.byref(handle))
+    del keep
+    log(f"[surface] c_api_check (a C process): "
+        f"{r.stdout.strip()}, wall {wall:.2f} s; in this process: status "
+        f"{term}, objective {obj!r}")
+    require(status == term == C.CUOPT_TERIMINATION_STATUS_OPTIMAL and
+            objective == obj and abs(obj + 0.36) <= 1e-12,
+            "c_api_check: not the in-process answer")
+    return launches
+
+
+def _http(base, method, path, body=None, ctype="application/json",
+          timeout=60.0):
+    """(status, body bytes) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method=method,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as exc:
+        with exc:
+            return exc.code, exc.read()
+
+
+def _submit(base, payload, ctype="application/json"):
+    body = payload if isinstance(payload, bytes) else \
+        json.dumps(payload).encode()
+    status, out = _http(base, "POST", "/cuopt/request", body, ctype)
+    require(status == 200, f"service: submit answered {status}: "
+                           f"{out[:300]!r}")
+    return json.loads(out)["reqId"]
+
+
+def _poll(base, req_id, deadline=SERVICE_DEADLINE):
+    """(status, JSON body) of the first answer other than 202."""
+    end = time.monotonic() + deadline
+    while time.monotonic() < end:
+        status, out = _http(base, "GET", f"/cuopt/solution/{req_id}")
+        if status != 202:
+            return status, json.loads(out)
+        time.sleep(0.05)
+    raise SmokeFailure(f"service: {req_id} unanswered after {deadline} s")
+
+
+def _gh_payload(inst, time_limit):
+    """The routing payload of a synthetic Gehring-Homberger instance. The
+    schema takes integer task time windows (cuopt_tpu's TaskData, after
+    the reference's), so each window is rounded inward: a route within
+    them keeps the instance's own windows."""
+    dist = inst.cost_matrix()
+    nv, n = inst.n_vehicles, inst.n_customers
+    return {
+        "cost_matrix_data": {"data": {"0": dist.tolist()}},
+        "travel_time_matrix_data": {"data": {"0": dist.tolist()}},
+        "fleet_data": {
+            "vehicle_locations": [[0, 0]] * nv,
+            "capacities": [[int(inst.capacity)] * nv],
+            "vehicle_time_windows": [[float(inst.tw_early[0]),
+                                      float(inst.tw_late[0])]] * nv},
+        "task_data": {
+            "task_locations": list(range(1, n + 1)),
+            "demand": [inst.demand[1:].astype(int).tolist()],
+            "task_time_windows": [
+                [int(np.ceil(e)), int(np.floor(lt))] for e, lt in
+                zip(inst.tw_early[1:], inst.tw_late[1:])],
+            "service_times": inst.service[1:].astype(int).tolist()},
+        "solver_config": {"time_limit": time_limit},
+    }
+
+
+def _compute_apps():
+    """nvidia-smi's processes with a context on the card, as
+    "pid, used memory" lines."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                          "used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    require(out.returncode == 0, f"nvidia-smi: {out.stderr}")
+    return [line.strip() for line in out.stdout.splitlines()
+            if line.strip()]
+
+
+def _children(pid):
+    out = subprocess.run(["ps", "-o", "pid=", "--ppid", str(pid)],
+                         capture_output=True, text=True, timeout=30)
+    return [int(p) for p in out.stdout.split()]
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return "\nState:\tZ" not in f.read()
+    except FileNotFoundError:
+        return False
+
+
+def phase_service(p50, workdir):
+    """Phase 18: python -m cuopt_torch.server with one worker on the card
+    (its default device). staircase-50k's LP as JSON (about 400k
+    nonzeros, through shared memory) and as msgpack+zlib, OPTIMAL within
+    1e-3 of HiGHS; twelve-binaries at -82 with an incumbent streamed;
+    GHC_200_1 for 10 s, checked as phase 15 checks it; an abort (410), an
+    unknown id (404), a pickle body (415); an LP through the thin client
+    and one through cuopt_sh. nvidia-smi must list the worker while the
+    server is up, and no process of the server may be left after it."""
+    import socket
+
+    from cuopt_torch.clients import CuOptServiceSelfHostClient
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing.construction import cheapest_insertion
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.utils.msgpack_codec import packb
+
+    highs = HIGHS_OBJ[50_000]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    server_log = open(os.path.join(workdir, "server.log"), "w")
+    apps_before = _compute_apps()
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cuopt_torch.server", "-p", str(port), "-i",
+         "127.0.0.1", "-d", "1"], cwd=ROOT, env=_entry_env(),
+        stdout=server_log, stderr=subprocess.STDOUT)
+    pids = []
+    try:
+        end = time.monotonic() + 120
+        while True:
+            try:
+                if _http(base, "GET", "/cuopt/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            require(proc.poll() is None and time.monotonic() < end,
+                    "service: the server did not start")
+            time.sleep(0.2)
+        log(f"[service] server up in {time.perf_counter() - t_start:.2f} s")
+
+        # staircase-50k as JSON
+        payload = lp_payload(p50)
+        body = json.dumps(payload).encode()
+        answers = {}
+        for name, data, ctype in (
+                ("JSON", body, "application/json"),
+                ("msgpack+zlib", zlib.compress(packb(payload)),
+                 "application/vnd.msgpack+zlib")):
+            t0 = time.perf_counter()
+            req_id = _submit(base, data, ctype)
+            t_submit = time.perf_counter() - t0
+            status, res = _poll(base, req_id)
+            wall = time.perf_counter() - t0
+            require(status == 200, f"service LP {name}: {status} {res}")
+            sol = res["response"]["solver_response"]["solution"]
+            obj = sol["primal_objective"]
+            answers[name] = obj
+            log(f"[service] staircase-50k as {name} ({len(data) / 1e6:.1f} "
+                f"MB): {sol['termination_reason']}, objective {obj:.6f} "
+                f"(rel err {abs(obj - highs) / highs:.2e}), submit to "
+                f"result {wall:.3f} s (the submit's answer after "
+                f"{t_submit:.3f} s), solve {sol['solver_time']:.3f} s as "
+                f"reported")
+            require(sol["termination_reason"] == "Optimal" and
+                    abs(obj - highs) / highs <= SURFACE_RTOL,
+                    f"service LP {name}")
+            if not pids:
+                # nvidia-smi names processes by the host's pids, not this
+                # machine's, so the worker shows as one more compute app
+                pids = _children(proc.pid)
+                apps = _compute_apps()
+                log(f"[service] server {proc.pid}, its processes {pids}; "
+                    f"nvidia-smi compute apps: {apps} (before the server: "
+                    f"{apps_before})")
+                require(len(apps) > len(apps_before),
+                        "service: nvidia-smi lists no process of the server")
+
+        # twelve-binaries: incumbents streamed
+        t0 = time.perf_counter()
+        req_id = _submit(base, lp_payload(twelve_binaries(), time_limit=60))
+        status, res = _poll(base, req_id)
+        wall = time.perf_counter() - t0
+        sol = res["response"]["solver_response"]["solution"]
+        inc = json.loads(_http(base, "GET",
+                               f"/cuopt/solution/{req_id}/incumbents")[1])
+        log(f"[service] twelve-binaries: {sol['termination_reason']}, "
+            f"objective {sol['primal_objective']}, "
+            f"{len(inc['incumbents'])} incumbents, wall {wall:.3f} s")
+        require(status == 200 and sol["termination_reason"] == "Optimal"
+                and sol["primal_objective"] == -82 and
+                len(inc["incumbents"]) >= 1, "service twelve-binaries")
+
+        # GHC_200_1, 10 s
+        inst = synth_gh_instance(200, "C", 1)
+        prob = build_problem(inst.to_data_model())
+        base_routes, _ = cheapest_insertion(prob)
+        base_cost = sum(prob.route_cost(v, r)
+                        for v, r in base_routes.items() if r)
+        t0 = time.perf_counter()
+        status, res = _poll(base, _submit(base, _gh_payload(inst, 10)))
+        wall = time.perf_counter() - t0
+        require(status == 200, f"service GHC_200_1: {status} {res}")
+        out = res["response"]["solver_response"]
+        dist = inst.cost_matrix()
+        routes, cost = [], 0.0
+        for truck in out["vehicle_data"].values():
+            orders = [int(t) for t in truck["task_id"] if t != "Depot"]
+            if orders:
+                routes.append(orders)
+                cost += float(sum(dist[a, b] for a, b in
+                                  zip(truck["route"], truck["route"][1:])))
+        served = sorted(o for r in routes for o in r)
+        tw_viol, cap_viol = host_route_check(inst, routes)
+        log(f"[service] GHC_200_1, 10 s: status {out['status']}, cost "
+            f"{cost:.2f} with {len(routes)} vehicles (cheapest insertion "
+            f"{base_cost:.2f}; phase 15's 15 s Solve above), reported "
+            f"{out['solution_cost']:.2f}, max time-window violation "
+            f"{tw_viol:.3e}, capacity excess {cap_viol:.3e}, submit to "
+            f"result {wall:.2f} s")
+        require(out["status"] == 0, "service GHC_200_1: status")
+        require(served == list(range(200)),
+                "service GHC_200_1: not every order served once")
+        require(tw_viol <= 1e-6 and cap_viol <= 1e-9,
+                "service GHC_200_1: time windows or capacity broken")
+        require(cost <= 0.97 * base_cost,
+                f"service GHC_200_1: cost {cost:.2f} above 0.97 x "
+                f"{base_cost:.2f}")
+
+        # the rest of the request surface
+        small = _gh_payload(synth_gh_instance(30, "C", 2), 2)
+        req_id = _submit(base, small)
+        status, res = _http(base, "DELETE", f"/cuopt/request/{req_id}")
+        require(status == 200 and json.loads(res) == {"aborted": True},
+                "service: abort")
+        require(_poll(base, req_id)[0] == 410, "service: aborted not 410")
+        require(_http(base, "GET", "/cuopt/solution/nope")[0] == 404,
+                "service: unknown id not 404")
+        require(_http(base, "POST", "/cuopt/request", b"x",
+                      "application/pickle")[0] == 415,
+                "service: pickle not 415")
+        two_rows = {
+            "csr_constraint_matrix": {"offsets": [0, 2, 4],
+                                      "indices": [0, 1, 0, 1],
+                                      "values": [3.0, 4.0, 2.7, 10.1]},
+            "objective_data": {"coefficients": [-0.2, -0.1]},
+            "constraint_bounds": {"upper_bounds": [5.4, 4.9],
+                                  "lower_bounds": ["ninf", "ninf"]}}
+        client = CuOptServiceSelfHostClient(
+            ip="127.0.0.1", port=port, polling_interval=0.05,
+            request_excess_timeout=SERVICE_DEADLINE)
+        t0 = time.perf_counter()
+        res = client.get_LP_solve(two_rows)
+        sol = res["response"]["solver_response"]["solution"]
+        log(f"[service] thin client: {sol['termination_reason']}, "
+            f"objective {sol['primal_objective']}, "
+            f"{time.perf_counter() - t0:.3f} s")
+        require(sol["termination_reason"] == "Optimal" and
+                abs(sol["primal_objective"] + 0.36) <= 1e-4,
+                "service: thin client")
+        data = os.path.join(workdir, "two_rows.json")
+        with open(data, "w") as f:
+            json.dump(two_rows, f)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "cuopt_torch.clients.cuopt_sh", data,
+             "-i", "127.0.0.1", "-p", str(port), "--poll-interval", "0.05"],
+            cwd=ROOT, env=_entry_env(), capture_output=True, text=True,
+            timeout=SERVICE_DEADLINE)
+        require(r.returncode == 0, f"cuopt_sh: {r.stderr[-1000:]}")
+        sol = json.loads(r.stdout)["response"]["solver_response"]["solution"]
+        log(f"[service] cuopt_sh: {sol['termination_reason']}, objective "
+            f"{sol['primal_objective']}, {time.perf_counter() - t0:.2f} s")
+        require(sol["termination_reason"] == "Optimal" and
+                abs(sol["primal_objective"] + 0.36) <= 1e-4,
+                "service: cuopt_sh")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        server_log.close()
+        end = time.monotonic() + 30
+        while any(_alive(p) for p in pids) and time.monotonic() < end:
+            time.sleep(0.2)
+        left = [p for p in pids if _alive(p)]
+        for p in left:  # the smoke stops every process it starts
+            os.kill(p, 9)
+    require(proc.returncode == 0, f"service: the server exited with "
+                                  f"{proc.returncode} on SIGTERM")
+    require(not left, f"service: processes {left} outlived the server")
+    log(f"[service] the server and its processes {pids} stopped; "
+        f"nvidia-smi compute apps: {_compute_apps()}")
+
+
 def main() -> int:
     import torch
 
@@ -1629,6 +2290,18 @@ def main() -> int:
     require("pandas" not in sys.modules, "the routing phases loaded pandas")
     require(all(k.launches == before[k.name] for k in pf.KERNELS),
             "the routing phases launched a row-pass kernel")
+
+    # phases 17-18: the surface (its facade solve launches the row pass;
+    # the CLI, the C ABI and the service solve in float64 and launch
+    # none) and the solver service, in processes of their own
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        total.update(phase_surface(p50, p2k, highs_2k, workdir))
+        log(f"[surface] done at {time.perf_counter() - t_start:.1f} s")
+        phase_service(p50, workdir)
+        log(f"[service] done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",

@@ -23,8 +23,21 @@ from cuopt_torch.utils.errors import (  # noqa: E402
     ValidationError,
 )
 
-from cuopt_torch.lp.batch import batch_solve  # noqa: E402
-from cuopt_torch.mip.solve import solve_mip  # noqa: E402
+
+
+def __getattr__(name):
+    # the solvers load torch when first named, so that the thin client
+    # and the service's front process, which solve nothing, start without
+    # it
+    if name == "batch_solve":
+        from cuopt_torch.lp.batch import batch_solve
+
+        return batch_solve
+    if name == "solve_mip":
+        from cuopt_torch.mip.solve import solve_mip
+
+        return solve_mip
+    raise AttributeError(f"module 'cuopt_torch' has no attribute {name!r}")
 
 
 __all__ = [

@@ -1,16 +1,25 @@
 """Build the port's native code at first use.
 
-Two kinds of library, both with a plain C interface that the Python side
-loads with ctypes and both cached in cuopt_torch/_build/ under a name that
-carries a hash of the sources and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is:
+Libraries with a plain C interface that the Python side loads with
+ctypes, each cached in cuopt_torch/_build/ under a name that carries a
+hash of its sources and flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is:
 
   - the CUDA sources cuopt_torch/csrc/<name>.cu, compiled by nvcc for
     sm_90a (`Builder.library(name)`);
-  - the host dual simplex, cpp/dual_simplex/simplex.cpp (shared with
-    cuopt_tpu, which builds it into a library of its own), compiled by
-    g++ under cuopt_tpu's flags (`Builder.simplex_library()`; see
-    HOST_FLAGS).
+  - the host dual simplex, cpp/dual_simplex/simplex.cpp, and the native
+    MPS parser, cpp/mps_parser/mps_parser.cpp (both shared with
+    cuopt_tpu, which builds them into libraries of its own), compiled by
+    g++ under cuopt_tpu's flags (`Builder.simplex_library()`,
+    `Builder.mps_library()`; see HOST_FLAGS);
+  - the C ABI, cpp/c_api/cuopt_c.c (`Builder.capi_library()`), built
+    from a copy that imports cuopt_torch.c_api_embed where the source
+    names cuopt_tpu's bridge (and with one argument format repaired, see
+    CAPI_PATCHES). It is not linked against libpython: loaded
+    into a Python process it takes that interpreter's symbols, and a
+    second libpython in one process would be a second interpreter. A C
+    program links libpython itself, as the port's own caller
+    csrc/c_api_check.c does (`Builder.c_api_check()`).
 
 Nothing here runs at import time; a missing compiler or a failed compile
 raises, with the compiler's output in the message. Several processes may
@@ -24,7 +33,9 @@ import ctypes
 import hashlib
 import os
 import shutil
+import site
 import subprocess
+import sysconfig
 import threading
 import time
 from pathlib import Path
@@ -33,14 +44,33 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SIMPLEX_DIR = Path(__file__).resolve().parents[2] / "cpp" / "dual_simplex"
+REPO = Path(__file__).resolve().parents[2]
+SIMPLEX_DIR = REPO / "cpp" / "dual_simplex"
 SIMPLEX_SOURCES = ("simplex.cpp", "sparse_lu.hpp")
+MPS_SOURCE = REPO / "cpp" / "mps_parser" / "mps_parser.cpp"
+CAPI_DIR = REPO / "cpp" / "c_api"
+CAPI_HEADER = REPO / "cpp" / "include" / "cuopt_c.h"
+# (text in cpp/c_api/cuopt_c.c, the port's text, times it must occur):
+# the Python bridge the library embeds, and the argument format of
+# cuOptCreateProblem and cuOptCreateRangedProblem, which gives 13
+# conversions ("iid...") for their 14 arguments, so the bridge receives
+# objective_offset as the sense, the sense as the offset and no nnz, and
+# both calls fail in cuopt_tpu's build (ROADMAP Queue 3)
+CAPI_PATCHES = (
+    ('"cuopt_tpu.c_api_embed"', '"cuopt_torch.c_api_embed"', 1),
+    ('"(iidLLLLLLLLLi)"', '"(iiidLLLLLLLLLi)"', 2),
+)
+CHECK_SOURCE = CSRC / "c_api_check.c"
 # cuopt_tpu's flags, plus -fno-gnu-unique: the simplex options are C++
 # inline variables, which g++ otherwise binds once per process across
 # every library that defines them, so this library would share its options
 # with cuopt_tpu's copy. The flag changes the symbols' binding only; the
 # machine code is the same (objdump -d of both builds is identical).
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared", "-fno-gnu-unique")
+# -I cpp/c_api keeps the source's #include "../include/cuopt_c.h" working
+# from its copy in _build/
+CAPI_FLAGS = ("-O2", "-fPIC", "-shared", "-I", str(CAPI_DIR), "-I",
+              sysconfig.get_paths()["include"])
 
 
 def nvcc() -> str:
@@ -60,9 +90,43 @@ def gxx() -> str:
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError(
-            "g++ not found: the host dual simplex of cuopt_torch is "
-            "compiled from cpp/dual_simplex/simplex.cpp at first use")
+            "g++ not found: the host libraries of cuopt_torch are "
+            "compiled from cpp/ at first use")
     return found
+
+
+def gcc() -> str:
+    found = shutil.which("gcc")
+    if found is None:
+        raise RuntimeError(
+            "gcc not found: the C ABI of cuopt_torch is compiled from "
+            "cpp/c_api/cuopt_c.c at first use")
+    return found
+
+
+def embed_ldflags() -> list[str]:
+    """What `python3-config --ldflags --embed` prints for this
+    interpreter, from the sysconfig values that script reads (a venv has
+    no python3-config of its own), and an rpath to libpython's
+    directory."""
+    cv = sysconfig.get_config_var
+    flags = [f"-L{cv('LIBDIR')}"]
+    if not cv("Py_ENABLE_SHARED"):
+        flags.append(f"-L{cv('LIBPL')}")
+    flags += [f"-lpython{cv('LDVERSION')}", *cv("LIBS").split(),
+              *cv("SYSLIBS").split(), f"-Wl,-rpath,{cv('LIBDIR')}"]
+    return flags
+
+
+def embed_env() -> dict:
+    """Environment for a C program that embeds this interpreter through
+    the C ABI: its import path reaches this checkout and this
+    interpreter's packages (torch), which an embedded interpreter started
+    from its build prefix would not see in a venv."""
+    paths = [str(REPO), *site.getsitepackages()]
+    if os.environ.get("PYTHONPATH"):
+        paths.append(os.environ["PYTHONPATH"])
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(paths)}
 
 
 def target(name: str) -> Path:
@@ -72,13 +136,51 @@ def target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _digest(parts, flags) -> str:
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part if isinstance(part, bytes) else part.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def simplex_target() -> Path:
     """Library path for the host simplex at its sources' current content."""
-    h = hashlib.sha256()
-    for f in SIMPLEX_SOURCES:
-        h.update((SIMPLEX_DIR / f).read_bytes())
-    h.update(" ".join(HOST_FLAGS).encode())
-    return BUILD_DIR / f"libsimplex-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / (
+        f"libsimplex-"
+        f"{_digest([SIMPLEX_DIR / f for f in SIMPLEX_SOURCES], HOST_FLAGS)}"
+        f".so")
+
+
+def mps_target() -> Path:
+    return BUILD_DIR / f"libmps-{_digest([MPS_SOURCE], HOST_FLAGS)}.so"
+
+
+def capi_source(patches=CAPI_PATCHES) -> bytes:
+    """cpp/c_api/cuopt_c.c with `patches` applied: the port's bridge in
+    place of cuopt_tpu's, and the create calls' argument format
+    repaired."""
+    text = (CAPI_DIR / "cuopt_c.c").read_text()
+    for old, new, times in patches:
+        if text.count(old) != times:
+            raise RuntimeError(
+                f"cpp/c_api/cuopt_c.c holds {old} {text.count(old)} times, "
+                f"not {times}: the port's copy cannot be made")
+        text = text.replace(old, new)
+    return text.encode()
+
+
+def capi_target() -> Path:
+    digest = _digest([capi_source(), CAPI_HEADER], CAPI_FLAGS)
+    return BUILD_DIR / f"libcuopt_torch_c-{digest}.so"
+
+
+def check_target() -> Path:
+    """Path of the standalone C caller, linked against the C ABI library
+    at capi_target()."""
+    digest = _digest([CHECK_SOURCE, CAPI_HEADER, str(capi_target()).encode()],
+                     embed_ldflags())
+    return BUILD_DIR / f"c_api_check-{digest}"
 
 
 class Builder:
@@ -87,6 +189,9 @@ class Builder:
     spills per kernel)."""
 
     SIMPLEX = "simplex"
+    MPS = "mps"
+    CAPI = "cuopt_torch_c"
+    CHECK = "c_api_check"
 
     def __init__(self):
         self.libs: dict[str, ctypes.CDLL] = {}
@@ -94,16 +199,16 @@ class Builder:
         self._locks: dict[str, threading.Lock] = {}
 
     def _compile(self, name: str, lib: Path, command: list[str],
-                 source: Path) -> float | None:
-        """Run `command -o <tmp> source` unless `lib` exists, then rename
-        the output into place. Returns the compile's seconds, or None when
-        the library was already built."""
+                 source: Path, after=()) -> float | None:
+        """Run `command -o <tmp> source *after` unless `lib` exists, then
+        rename the output into place. Returns the compile's seconds, or
+        None when the library was already built."""
         if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
-        r = subprocess.run([*command, "-o", str(tmp), str(source)],
+        r = subprocess.run([*command, "-o", str(tmp), str(source), *after],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True)
         self.log[name] = r.stdout
@@ -124,6 +229,42 @@ class Builder:
         return self._compile(self.SIMPLEX, simplex_target(),
                              [gxx(), *HOST_FLAGS], SIMPLEX_DIR / "simplex.cpp")
 
+    def build_mps(self) -> float | None:
+        """Compile cpp/mps_parser/mps_parser.cpp unless its library
+        exists, with the flags cuopt_tpu builds it under."""
+        return self._compile(self.MPS, mps_target(), [gxx(), *HOST_FLAGS],
+                             MPS_SOURCE)
+
+    def build_capi(self) -> float | None:
+        """Write the port's copy of cpp/c_api/cuopt_c.c to _build/ and
+        compile it unless its library exists."""
+        lib = capi_target()
+        if lib.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        copy = lib.with_name(lib.name[3:].replace(".so", ".c"))
+        tmp = copy.with_name(
+            f"{copy.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_bytes(capi_source())
+        os.replace(tmp, copy)
+        return self._compile(self.CAPI, lib, [gcc(), *CAPI_FLAGS], copy)
+
+    def build_check(self) -> float | None:
+        """Compile csrc/c_api_check.c, linked against the C ABI library
+        and libpython, unless it exists."""
+        self.build_capi()
+        return self._compile(
+            self.CHECK, check_target(),
+            [gcc(), "-O2", "-I", str(CAPI_HEADER.parent)], CHECK_SOURCE,
+            after=[str(capi_target()), *embed_ldflags()])
+
+    def c_api_check(self) -> Path:
+        """Path of the built standalone C caller; run it with
+        embed_env()."""
+        with self._locks.setdefault(self.CHECK, threading.Lock()):
+            self.build_check()
+        return check_target()
+
     def _load(self, name: str, build, path) -> ctypes.CDLL:
         # one lock per library: the simplex of a concurrent solve must not
         # wait behind the CUDA build of the other leg
@@ -140,6 +281,12 @@ class Builder:
 
     def simplex_library(self) -> ctypes.CDLL:
         return self._load(self.SIMPLEX, self.build_simplex, simplex_target)
+
+    def mps_library(self) -> ctypes.CDLL:
+        return self._load(self.MPS, self.build_mps, mps_target)
+
+    def capi_library(self) -> ctypes.CDLL:
+        return self._load(self.CAPI, self.build_capi, capi_target)
 
 
 BUILDER = Builder()

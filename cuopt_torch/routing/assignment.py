@@ -5,8 +5,8 @@ Mirrors reference cuopt.routing.Assignment
 values, route dataframe with route/arrival_stamp/truck_id/location,
 status SUCCESS/FAIL/TIMEOUT/EMPTY, infeasible orders). cuopt_tpu returns
 the routes as a pandas DataFrame; the port returns a `RouteTable` of
-numpy columns, so that a solve needs no pandas (`to_pandas()` makes the
-DataFrame on request).
+numpy columns: the machine with the card has no pandas, and the port
+imports none.
 """
 
 from __future__ import annotations
@@ -47,12 +47,6 @@ class RouteTable:
     def rows(self):
         """The rows as tuples in column order."""
         return list(zip(*(self._cols[c].tolist() for c in ROUTE_COLUMNS)))
-
-    def to_pandas(self):
-        """The table as the pandas DataFrame that cuopt_tpu returns."""
-        import pandas as pd
-
-        return pd.DataFrame(self.rows(), columns=list(ROUTE_COLUMNS))
 
 
 class SolutionStatus(Enum):

@@ -429,3 +429,80 @@ def test_routing_solve_on_card(cuda):
     table = sol.get_route()
     served = table[table["type"] == "Delivery"]["route"]
     assert np.array_equal(np.sort(served), np.arange(60))
+
+
+def test_facade_solve_on_card(cuda):
+    """linear_programming.Solve with registry settings and its default
+    device, the card: every attempt through the row-pass kernel."""
+    from cuopt_torch.linear_programming import Solve, SolverSettings
+
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    s = SolverSettings()
+    s.set_parameter("method", C.CUOPT_METHOD_PDLP)
+    s.set_parameter("log_to_console", "false")
+    s.pdlp.dtype = "float32"
+    pf.reset_counts()
+    sol = Solve(prob, s)
+    info = sol.get_additional_termination_information()
+    assert sol.get_termination_reason() == "Optimal"
+    assert pf.ROW_PASS_ATOMIC.launches == info["attempts"] > 0
+
+
+def test_server_request_on_card(cuda, tmp_path):
+    """One LP through the service, solved by a worker on cuda:0."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    import urllib.request
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    env.pop("CUOPT_TORCH_DEVICE", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cuopt_torch.server", "-p", str(port),
+         "-i", "127.0.0.1", "-d", "1"], cwd=root, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        end = time.monotonic() + 60
+        while True:
+            try:
+                urllib.request.urlopen(base + "/cuopt/health", timeout=5)
+                break
+            except OSError:
+                assert time.monotonic() < end, "the server did not start"
+                time.sleep(0.2)
+        payload = {
+            "csr_constraint_matrix": {"offsets": [0, 2, 4],
+                                      "indices": [0, 1, 0, 1],
+                                      "values": [3.0, 4.0, 2.7, 10.1]},
+            "objective_data": {"coefficients": [-0.2, -0.1]},
+            "constraint_bounds": {"upper_bounds": [5.4, 4.9],
+                                  "lower_bounds": ["ninf", "ninf"]},
+            "solver_config": {"method": 1},
+        }
+        req = urllib.request.Request(
+            base + "/cuopt/request", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            req_id = json.load(r)["reqId"]
+        end = time.monotonic() + 120
+        while True:
+            with urllib.request.urlopen(
+                    f"{base}/cuopt/solution/{req_id}", timeout=30) as r:
+                if r.status == 200:
+                    out = json.load(r)["response"]["solver_response"]
+                    break
+            assert time.monotonic() < end, "no answer in 120 s"
+            time.sleep(0.2)
+        assert out["solution"]["termination_reason"] == "Optimal"
+        assert abs(out["solution"]["primal_objective"] + 0.36) < 1e-3
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)

@@ -19,6 +19,9 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _FORBIDDEN = ("jax", "jaxlib", "flax", "cuopt_tpu")
+# installed here but not on the machine with the card: cuopt_tpu's server
+# and clients use them, the port's use the standard library
+_NOT_ON_THE_CARD = ("aiohttp", "pydantic", "msgpack", "requests", "pandas")
 
 
 def _sources():
@@ -49,6 +52,66 @@ def test_no_jax_or_cuopt_tpu_imports():
            for m in _imported_modules(f)
            if m and m.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
+
+
+def test_no_package_the_card_lacks_is_imported():
+    bad = [(str(f.relative_to(ROOT)), m) for f in _sources()
+           for m in _imported_modules(f)
+           if m and m.split(".")[0] in _NOT_ON_THE_CARD]
+    assert not bad, bad
+
+
+def test_surface_modules_stand_alone():
+    """Every module of cuopt_tpu's surface has its counterpart, and
+    importing all of them loads neither JAX nor a package the card
+    lacks."""
+    surface = ["io/mps_parser.py", "io/native_mps.py", "io/__init__.py",
+               "lp/settings.py", "linear_programming/__init__.py",
+               "cli.py", "c_api.py", "c_api_embed.py",
+               "server/data_definition.py", "server/result_store.py",
+               "server/solver.py", "server/worker.py",
+               "server/job_queue.py", "server/webserver.py",
+               "server/__main__.py", "clients/self_hosted.py",
+               "clients/cuopt_sh.py", "clients/__init__.py"]
+    for rel in surface:
+        assert (ROOT / "cuopt_tpu" / rel).exists(), rel
+        assert (ROOT / "cuopt_torch" / rel).exists(), rel
+    modules = [("cuopt_torch." + r[:-3].replace("/", ".")).removesuffix(
+        ".__init__") for r in surface]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        f"       {_FORBIDDEN + _NOT_ON_THE_CARD!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_client_and_service_front_load_no_torch():
+    """The thin client and the service's front process solve nothing:
+    importing them loads no torch (the workers do)."""
+    code = (
+        "import sys\n"
+        "import cuopt_torch.clients.cuopt_sh\n"
+        "import cuopt_torch.server.__main__\n"
+        "import cuopt_torch.server.webserver\n"
+        "assert 'torch' not in sys.modules\n"
+        "from cuopt_torch import solve_mip\n"
+        "assert 'torch' in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_cpu_solve_loads_no_jax():
