@@ -37,7 +37,10 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      under PDLPSolverSettings() defaults (float64);
   8. crossover: PDLP in float32 on the 2k staircase, then the simplex
      from its point to HiGHS's vertex within 1e-9, in fewer pivots than
-     a cold simplex;
+     a cold simplex; then from three float32 points at the default 1e-4,
+     where the shared simplex source crashes the process on most, the
+     port's copy must return (OPTIMAL, crossed over or with the
+     simplex's status as crossover_status);
   9. warm start: the 50k staircase re-solved from a first solve's state
      after its objective is scaled by 1 + 1e-3, in fewer steps than a
      cold re-solve, every attempt through row_pass_atomic;
@@ -105,7 +108,25 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      capacity rechecked on the host, cost at most 0.97 x cheapest
      insertion; 410 for an abort, 404 for an unknown id, 415 for pickle;
      an LP through the thin client and one through cuopt_sh; no process
-     of the server left after SIGTERM.
+     of the server left after SIGTERM;
+  19. multi-device, four shards on the card (and one shard per card where
+     there are several), each a thread with its own CUDA stream:
+     staircase-64k (512 row tiles, the single-exchange halo path; Hx, Hy
+     and ty printed) and staircase-50k (the all-gather path, the halo
+     gates' failures printed), two float64 majors sharded against two
+     unsharded from one state, x and y within 1e-9, equal steps, kkt
+     within 1e-8; the step's wall and CUDA-event ms at 1, 2 and 4 shards
+     beside the unsharded step, with one attempt's collectives and bytes;
+     staircase-64k in float32 sharded to OPTIMAL, within 5e-4 of the
+     unsharded solve (through row_pass_atomic), its residual rechecked on
+     the host; phase 11's eight 50k members over the shards, each with
+     phase 11's status and attempts and its objective within 1e-6;
+     GHC_200_1's construction as 4 islands x 4 members, 5 epochs of 8
+     sweep steps, each equal to its one-device simulation, the best
+     member served once, feasible on the host and no dearer than the
+     construction; hierarchical_psum of 2^20 values on 2 x 2 shards
+     within 1e-6 of the flat sum. No sharded run launches a row-pass
+     kernel.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -719,10 +740,14 @@ def phase_crossover(p2k, highs_2k):
     vertex on the host: HiGHS's optimum within 1e-9, in fewer pivots than
     a cold simplex. Returns the kernels' launch counts.
 
-    PDLP solves to CROSSOVER_TOL, not the default 1e-4: from most float32
-    points at 1e-4 the shared C++ crossover crashes the process (its
-    crash basis fails to factorize and simplex.cpp:99 -> :885 reads x_B
-    before it exists; ROADMAP Queue 3)."""
+    PDLP solves to CROSSOVER_TOL for the vertex check. Then three float32
+    points at the default 1e-4 (seeded starts 1-3, those of
+    scripts/torch_crossover_crashes.py), from most of which the shared
+    C++ crossover crashes the process (its crash basis fails to
+    factorize and simplex.cpp:99 -> :885 reads x_B before it exists):
+    the port's copy of the simplex (kernels/build.py SIMPLEX_PATCHES)
+    must return, each solve OPTIMAL, crossed over or with the
+    simplex's status as crossover_status."""
     from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
     from cuopt_torch.utils.timer import Timer
 
@@ -745,7 +770,25 @@ def phase_crossover(p2k, highs_2k):
     require(rel <= 1e-9, f"{name}: objective {obj} vs HiGHS {highs_2k}")
     require(info["crossover_iterations"] < cold["iterations"],
             f"{name}: crossover took {info['crossover_iterations']} pivots")
-    return launches
+    launches = Counter(launches)
+    for seed in (1, 2, 3):
+        s = _settings(20000, operator_kind="blockband", crossover=True)
+        s.initial_primal_solution = np.random.default_rng(seed).uniform(
+            0.0, 1e-3, p2k.n_variables)
+        sol, info, got = _solve(f"{name} at 1e-4, start {seed}", p2k, s,
+                                ("row_pass_atomic",))
+        launches.update(got)
+        log(f"[crossover] {name} at 1e-4, start {seed}: "
+            f"{sol.get_termination_reason()}, "
+            f"{info.get('solved_by', 'pdlp')}, crossover "
+            f"{'reached a vertex' if 'crossover_iterations' in info else 'failed with status ' + str(info.get('crossover_status'))}"
+            f", objective {sol.get_primal_objective():.9f}")
+        require(sol.get_termination_reason() == "Optimal",
+                f"{name} at 1e-4, start {seed}: status")
+        require(info.get("solved_by") == "pdlp+crossover" or
+                "crossover_status" in info,
+                f"{name} at 1e-4, start {seed}: no crossover outcome")
+    return dict(launches)
 
 
 def phase_warm_start(p50):
@@ -979,6 +1022,7 @@ def phase_batch(name, base, kind, obj_rtol=1e-6, steps_rtol=0.02):
         f"problem builds")
     batch_majors_check(name, members, s)
     torch.cuda.empty_cache()
+    return sols
 
 
 # ----------------------------------------------------------- phase 12
@@ -2177,6 +2221,370 @@ def phase_service(p50, workdir):
         f"nvidia-smi compute apps: {_compute_apps()}")
 
 
+# ----------------------------------------------------------- phase 19
+HALO_N = 65_536  # 512 row tiles: 128 per shard on four shards
+ISLANDS, MEMBERS, SWEEP_STEPS, EPOCHS = 4, 4, 8, 5
+
+
+def _mesh_label(mesh):
+    cards = len(set(mesh.devices))
+    return f"{mesh.size} shards on {cards} card{'s' if cards > 1 else ''}"
+
+
+def _f64_settings():
+    """PDLPSolverSettings() defaults (float64), PDLP alone."""
+    from cuopt_torch import constants as C
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+
+    s = PDLPSolverSettings()
+    s.method = C.CUOPT_METHOD_PDLP
+    s.log_to_console = False
+    return s
+
+
+def _row_pass_launches():
+    from cuopt_torch.lp import pdhg_fused as pf
+
+    return sum(k.launches for k in pf.KERNELS)
+
+
+def _halo_gates(op, D):
+    """Why the single-exchange layout was or was not built."""
+    T, tile = op.row_slabs.shape[0], op.tile
+    why = []
+    if op.n_rows != T * tile:
+        why.append(f"{op.n_rows} rows are not {T} whole tiles")
+    if T % D:
+        why.append(f"{T} row tiles do not split over {D} shards")
+    if op.spill_vals.numel() or op.t_spill_vals.numel():
+        why.append(f"{op.spill_vals.numel()} + {op.t_spill_vals.numel()} "
+                   f"entries spill")
+    return "; ".join(why) or "none failed"
+
+
+def sharded_majors_check(name, prob, mesh, majors=2):
+    """`majors` float64 majors of `prob` on the block-band operator, split
+    over `mesh`, against as many unsharded majors on the card from one
+    state: x and y within 1e-9 (|a - b| <= 1e-9 (1 + |b|)), the same
+    steps, kkt within 1e-8 relative. No row-pass kernel may launch.
+    Returns the first shard's operator."""
+    import torch
+
+    from cuopt_torch.lp import pdlp
+    from cuopt_torch.parallel import gather_state, shard_problem_and_state
+
+    s = _f64_settings()
+    solver = pdlp.PdlpSolver(prob, s, "cuda")
+    dev = pdlp.build_device_problem(prob, solver.hp, torch.float64,
+                                    "blockband", "cuda")
+    st0 = pdlp.initial_state(dev, solver.hp, torch.float64)
+    fn = pdlp.make_major_fn(solver.cfg)
+    st1 = st0
+    for _ in range(majors):
+        st1, r1 = fn(dev, st1)
+    sdev, sst = shard_problem_and_state(dev, st0, mesh)
+    op = sdev.shards[0].op
+    if op.halo_meta is not None:
+        D, Lr, Lc, Hx, Hy, ty = op.halo_meta
+        log(f"[multi] {name}, {_mesh_label(mesh)}: halo path, Hx {Hx}, "
+            f"Hy {Hy}, ty {ty} (rows {Lr}, columns {Lc} per shard)")
+    else:
+        log(f"[multi] {name}, {_mesh_label(mesh)}: general path (all-gathered "
+            f"windows): the halo gates failed: {_halo_gates(dev.op, mesh.size)}")
+    before = _row_pass_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(majors):
+        sst, r8 = fn(sdev, sst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(_row_pass_launches() == before,
+            f"{name}: the sharded majors launched a row-pass kernel")
+    g = gather_state(sst)
+    ex = float(((g.x - st1.x).abs() / (1 + st1.x.abs())).max())
+    ey = float(((g.y - st1.y).abs() / (1 + st1.y.abs())).max())
+    k1, k8 = float(r1["kkt_cur"]), float(r8["kkt_cur"])
+    steps1, steps8 = int(st1.total_steps), int(g.total_steps)
+    log(f"[multi] {name}, {_mesh_label(mesh)}: {majors} float64 majors "
+        f"sharded against unsharded from one state: x within {ex:.2e}, y "
+        f"within {ey:.2e}, steps {steps8} / {steps1}, kkt {k8:.12e} / "
+        f"{k1:.12e}; sharded wall {wall:.3f} s, {r8['collectives']} "
+        f"collectives in the last major (all shards)")
+    require(ex <= 1e-9 and ey <= 1e-9,
+            f"{name}: sharded x/y {ex:.2e}/{ey:.2e} from unsharded")
+    require(steps8 == steps1, f"{name}: {steps8} steps against {steps1}")
+    require(abs(k8 - k1) <= 1e-8 * abs(k1), f"{name}: kkt {k8} vs {k1}")
+    del sdev, sst, dev
+    return op
+
+
+def sharded_step_times(name, prob, counts=(1, 2, 4)):
+    """Prints the wall and CUDA-event ms per step of one float64 major on
+    1, 2 and 4 shards of the card beside the unsharded step, and the
+    collectives and bytes of one attempt."""
+    import torch
+
+    from cuopt_torch.lp import pdlp
+    from cuopt_torch.parallel import (make_mesh, run_spmd,
+                                      shard_problem_and_state)
+    from cuopt_torch.parallel.sharding import attach_comm
+
+    s = _f64_settings()
+    solver = pdlp.PdlpSolver(prob, s, "cuda")
+    dev = pdlp.build_device_problem(prob, solver.hp, torch.float64,
+                                    "blockband", "cuda")
+    st0 = pdlp.initial_state(dev, solver.hp, torch.float64)
+    fn = pdlp.make_major_fn(solver.cfg)
+
+    def timed(d, st):
+        st, _ = fn(d, st)  # warm
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        st, rep = fn(d, st)
+        e1.record()
+        e1.synchronize()
+        wall = time.perf_counter() - t0
+        n = solver.hp.major_iteration
+        return 1e3 * wall / n, e0.elapsed_time(e1) / n
+
+    out = {"solo": timed(dev, st0)}
+    for D in counts:
+        mesh = make_mesh(devices=["cuda:0"] * D)
+        sdev, sst = shard_problem_and_state(dev, st0, mesh)
+        out[D] = timed(sdev, sst)
+
+        def one_attempt(comm, d, st):
+            d = attach_comm(d, comm)
+            pdlp._attempt(d, st, solver.cfg, d.c - st.aty, st.step_size, 0)
+            return comm.collectives, comm.bytes_sent
+
+        per = run_spmd(mesh, one_attempt, list(zip(sdev.shards, sst.shards)))
+        path = "halo" if sdev.shards[0].op.halo_meta is not None else \
+            "general"
+        log(f"[multi] {name}: {D} shard{'s' if D > 1 else ''} on 1 card "
+            f"({path} path): {out[D][0]:.3f} ms wall, {out[D][1]:.3f} ms "
+            f"CUDA events per step (unsharded {out['solo'][0]:.3f} / "
+            f"{out['solo'][1]:.3f}); one attempt: {per[0][0]} collectives "
+            f"per shard, {sum(b for _, b in per)} bytes exchanged")
+        del sdev, sst
+
+
+def phase_multi_f32_solve(p64, mesh):
+    """staircase-64k in float32: the unsharded solve (every attempt through
+    row_pass_atomic) and the same solve split over `mesh` (no row-pass
+    launch), both OPTIMAL, objectives within 5e-4 relative, the sharded
+    primal residual rechecked on the host in float64. Returns the
+    unsharded solve's launch counts."""
+    import torch
+
+    from cuopt_torch import constants as C
+    from cuopt_torch.lp.pdlp import PdlpSolver
+
+    s = _settings(20000, operator_kind="blockband")
+    sol, info, launches = _solve("staircase-64k", p64, s, ("row_pass_atomic",))
+    require(sol.get_termination_reason() == "Optimal",
+            "staircase-64k: unsharded float32 solve not OPTIMAL")
+    want = sol.get_primal_objective()
+    before = _row_pass_launches()
+    t0 = time.perf_counter()
+    raw = PdlpSolver(p64, s, "cuda", mesh=mesh).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(_row_pass_launches() == before,
+            "staircase-64k: the sharded solve launched a row-pass kernel")
+    obj = raw["primal_objective"]
+    rel = abs(obj - want) / abs(want)
+    res, b_norm = host_primal_residual(p64, raw["primal_solution"])
+    t = s.tolerances
+    limit = t.absolute_primal_tolerance + t.relative_primal_tolerance * b_norm
+    log(f"[multi] staircase-64k float32, {_mesh_label(mesh)}: status "
+        f"{raw['status']}, {raw['iterations']} steps (unsharded "
+        f"{info['iterations']}), objective {obj:.6f} (unsharded {want:.6f}, "
+        f"rel {rel:.2e}), wall {wall:.3f} s (unsharded {info['wall_s']:.3f} "
+        f"s), host float64 primal residual {res:.4e} (limit {limit:.4e})")
+    require(raw["status"] == C.CUOPT_TERIMINATION_STATUS_OPTIMAL,
+            f"staircase-64k sharded: status {raw['status']}")
+    require(rel <= 5e-4, f"staircase-64k sharded: objective rel {rel:.2e}")
+    require(res <= limit, f"staircase-64k sharded: residual {res} > {limit}")
+    return launches
+
+
+def phase_multi_frontier(p50, batch_sols, mesh):
+    """Phase 11's eight members of staircase-50k by batch_solve over
+    `mesh`: every member's status equal to phase 11's unsharded batch,
+    its objective within 1e-6 and its attempts within 1%. (Each shard
+    stacks two members where phase 11 stacked eight, and the stacked
+    products round differently with the stack's size: on the card one
+    member took 585 attempts sharded against 584 in phase 11; PERF.md,
+    section 6.)"""
+    import torch
+
+    from cuopt_torch import batch_solve
+
+    members = batch_members(p50)
+    before = _row_pass_launches()
+    t0 = time.perf_counter()
+    sols = batch_solve(members, _f64_settings(), "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(_row_pass_launches() == before,
+            "frontier: the sharded batch launched a row-pass kernel")
+    worst = 0.0
+    attempts = []
+    for k, (a, b) in enumerate(zip(sols, batch_sols)):
+        ia = a.get_additional_termination_information()
+        ib = b.get_additional_termination_information()
+        rel = abs(a.get_primal_objective() - b.get_primal_objective()) / \
+            abs(b.get_primal_objective())
+        worst = max(worst, rel)
+        attempts.append((ia["attempts"], ib["attempts"]))
+        require(a.get_termination_reason() == b.get_termination_reason()
+                == "Optimal", f"frontier member {k}: status")
+        require(abs(ia["attempts"] - ib["attempts"]) <= 0.01 * ib["attempts"],
+                f"frontier member {k}: {ia['attempts']} attempts sharded, "
+                f"{ib['attempts']} in phase 11")
+        require(rel <= 1e-6, f"frontier member {k}: objective rel {rel:.2e}")
+    steps = sum(x.get_nb_iterations() for x in sols)
+    same = sum(a == b for a, b in attempts)
+    log(f"[multi] frontier staircase-50k x{len(members)}, "
+        f"{_mesh_label(mesh)} ({len(members) // mesh.size} members a "
+        f"shard): every member OPTIMAL as in phase 11, objectives within "
+        f"{worst:.2e}, attempts (sharded, phase 11) {attempts}: {same} of "
+        f"{len(attempts)} equal; wall {wall:.3f} s, {steps / wall:.1f} "
+        f"member-steps/s")
+
+
+def phase_multi_islands(mesh):
+    """GHC_200_1's construction tiled into ISLANDS x MEMBERS members,
+    EPOCHS epochs of SWEEP_STEPS sweep steps over `mesh`: each epoch's
+    routes equal to a one-device simulation of it and costs within 1e-5;
+    the best member serves every order once, keeps its time windows and
+    capacity in a float64 host recheck, and costs no more than the
+    construction. Returns the mean epoch wall in seconds."""
+    import torch
+
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing.construction import batched_construction
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.islands import (island_epoch,
+                                             make_island_members,
+                                             simulate_epoch)
+    from cuopt_torch.routing.local_search import build_ls_problem
+
+    inst = synth_gh_instance(200, "C", 1)
+    prob = build_problem(inst.to_data_model())
+    p = build_ls_problem(prob, device="cuda")
+    # Solve's construction at this size (cheapest insertion leaves an
+    # order out here)
+    routes, unserved = batched_construction(prob, p)
+    require(not unserved, f"islands: construction left {unserved}")
+    F = prob.n_fleet
+    L = max(8, max(len(r) for r in routes.values()) + 4)
+    R0 = -np.ones((F, L), np.int64)
+    lens0 = np.zeros(F, np.int64)
+    for v, r in routes.items():
+        R0[v, :len(r)] = r
+        lens0[v] = len(r)
+    base = sum(prob.route_cost(v, r) for v, r in routes.items() if r)
+    Rs, lenss = make_island_members(prob, R0, lens0, ISLANDS * MEMBERS)
+    Rs = torch.as_tensor(Rs, device="cuda")
+    lenss = torch.as_tensor(lenss, device="cuda")
+    before = _row_pass_launches()
+    walls = []
+    for e in range(EPOCHS):
+        Rw, lw, cw, bw = simulate_epoch(p, Rs, lenss, ISLANDS, SWEEP_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Rs, lenss, costs, best = island_epoch(p, Rs, lenss, mesh, SWEEP_STEPS)
+        best = float(best)
+        walls.append(time.perf_counter() - t0)
+        c = costs.cpu().numpy()
+        differ = [k for k in range(len(c)) if not (
+            np.array_equal(Rs[k].cpu().numpy(), Rw[k]) and
+            np.array_equal(lenss[k].cpu().numpy(), lw[k]))]
+        require(not differ,
+                f"islands epoch {e}: members {differ} differ from the "
+                f"simulation (costs {c[differ].tolist()} against "
+                f"{cw[differ].tolist()}; all sharded {c.tolist()}, "
+                f"simulated {cw.tolist()})")
+        require(np.allclose(c, cw, rtol=1e-5, atol=0.0) and
+                abs(best - bw) <= 1e-5 * abs(bw),
+                f"islands epoch {e}: costs differ from the simulation")
+        log(f"[multi] islands GHC_200_1 epoch {e}: best {best:.2f} "
+            f"(construction {base:.2f}), wall {walls[-1]:.3f} s, equal to "
+            f"the one-device simulation")
+    require(_row_pass_launches() == before,
+            "islands: an epoch launched a row-pass kernel")
+    k = int(torch.argmin(costs))
+    R, ln = Rs[k].cpu().numpy(), lenss[k].cpu().numpy()
+    best_routes = [[int(o) for o in R[f, :ln[f]]] for f in range(F)]
+    served = sorted(o for r in best_routes for o in r)
+    tw_viol, cap_viol = host_route_check(inst, best_routes)
+    log(f"[multi] islands GHC_200_1, {ISLANDS} islands x {MEMBERS} members "
+        f"on {_mesh_label(mesh)}: best {best:.2f} with "
+        f"{sum(1 for r in best_routes if r)} vehicles against construction "
+        f"{base:.2f}; host float64 recheck: max time-window violation "
+        f"{tw_viol:.3e}, max capacity excess {cap_viol:.3e}; epoch wall "
+        f"{np.mean(walls):.3f} s mean")
+    require(served == list(range(prob.n_serve)),
+            "islands: the best member does not serve every order once")
+    require(tw_viol <= 1e-6 and cap_viol <= 1e-9,
+            "islands: the best member breaks a time window or capacity")
+    require(best <= base + 1e-6, f"islands: best {best} above {base}")
+    return float(np.mean(walls))
+
+
+def phase_multi_mesh2d():
+    """A 2 x 2 (slices, rows) mesh on the card: hierarchical_psum of 2^20
+    float32 values against the flat sum, within 1e-6 relative."""
+    import torch
+
+    from cuopt_torch.parallel import hierarchical_psum, make_mesh_2d
+
+    mesh2 = make_mesh_2d(2, 2, devices=["cuda:0"] * 4)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(1 << 20, generator=g, device="cuda")
+    got, flat = float(hierarchical_psum(x, mesh2)), float(x.sum())
+    rel = abs(got - flat) / abs(flat)
+    log(f"[multi] hierarchical psum on 2 x 2 shards of the card: {got:.6f} "
+        f"against the flat sum {flat:.6f} (rel {rel:.2e})")
+    require(rel <= 1e-6, f"hierarchical psum rel {rel:.2e}")
+
+
+def phase_multi_device(p50, batch_sols):
+    """Phase 19: the mesh. Returns the row-pass launch counts of the
+    unsharded float32 solve it holds the sharded one against."""
+    import torch
+
+    from cuopt_torch.parallel import make_mesh
+
+    meshes = [make_mesh(devices=["cuda:0"] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    p64 = staircase(HALO_N)
+    for mesh in meshes:
+        op = sharded_majors_check("staircase-64k", p64, mesh)
+        require(op.halo_meta is not None,
+                "staircase-64k: the halo extension was not built")
+        torch.cuda.empty_cache()
+        op = sharded_majors_check("staircase-50k", p50, mesh)
+        require(op.halo_meta is None and op.row_halo is None,
+                "staircase-50k: expected the general path")
+        torch.cuda.empty_cache()
+    sharded_step_times("staircase-64k", p64)
+    launches = phase_multi_f32_solve(p64, meshes[0])
+    del p64
+    torch.cuda.empty_cache()
+    for mesh in meshes:
+        phase_multi_frontier(p50, batch_sols, mesh)
+    phase_multi_islands(meshes[0])
+    phase_multi_mesh2d()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2246,7 +2654,7 @@ def main() -> int:
     # phases 11-14 run in float64: the row-pass kernels (float32) see no
     # launch there, and their counts go on adding up
     pf.reset_counts()
-    phase_batch("staircase-50k x8", p50, "blockband")
+    batch_sols = phase_batch("staircase-50k x8", p50, "blockband")
     # Batched and alone, a dense-1k member's iterates part in their last
     # bits (other kernels sum in other orders) and drift apart over its
     # ~13 majors: the two runs can stop a major apart, or in one major at
@@ -2302,6 +2710,11 @@ def main() -> int:
         log(f"[service] done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+    # phase 19: the mesh, four shards on the card; its unsharded float32
+    # reference solve launches row_pass_atomic, the sharded runs none
+    total.update(phase_multi_device(p50, batch_sols))
+    log(f"[multi] done at {time.perf_counter() - t_start:.1f} s")
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",

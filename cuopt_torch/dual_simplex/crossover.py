@@ -29,7 +29,8 @@ _PDLP_KEYS = ("iterations", "attempts", "compile_s", "solve_loop_s",
 
 def crossover(prob, pdlp_raw, settings, timer):
     """Push the PDLP solution in `pdlp_raw` to an exact vertex. If the
-    simplex ends short of OPTIMAL, the PDLP solution is kept."""
+    simplex ends short of OPTIMAL, the PDLP solution is kept, with the
+    simplex's status as crossover_status."""
     log = get_logger()
     raw = solve_lp_simplex(
         prob, settings, timer,
@@ -38,9 +39,15 @@ def crossover(prob, pdlp_raw, settings, timer):
         want_vstat=True,
     )
     if raw["status"] != C.CUOPT_TERIMINATION_STATUS_OPTIMAL:
-        log.info("crossover did not reach a vertex optimum (status "
-                 f"{raw['status']}); keeping the PDLP solution")
-        return pdlp_raw
+        # e.g. NUMERICAL_ERROR when the crash basis does not factorize
+        # (the port's copy of the simplex returns it there, where the
+        # shared source reads a vector it never filled: kernels/build.py
+        # SIMPLEX_PATCHES)
+        log.warning("crossover failed (simplex status "
+                    f"{raw['status']}); keeping the PDLP solution")
+        out = dict(pdlp_raw)
+        out["crossover_status"] = raw["status"]
+        return out
     raw["solved_by"] = "pdlp+crossover"
     raw["crossover_iterations"] = raw["iterations"]
     for k in _PDLP_KEYS:

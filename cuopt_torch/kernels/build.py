@@ -11,7 +11,8 @@ unchanged one is loaded as it is:
     MPS parser, cpp/mps_parser/mps_parser.cpp (both shared with
     cuopt_tpu, which builds them into libraries of its own), compiled by
     g++ under cuopt_tpu's flags (`Builder.simplex_library()`,
-    `Builder.mps_library()`; see HOST_FLAGS);
+    `Builder.mps_library()`; see HOST_FLAGS); the simplex from a copy
+    with its exits before x_B exists repaired (SIMPLEX_PATCHES);
   - the C ABI, cpp/c_api/cuopt_c.c (`Builder.capi_library()`), built
     from a copy that imports cuopt_torch.c_api_embed where the source
     names cuopt_tpu's bridge (and with one argument format repaired, see
@@ -60,6 +61,34 @@ CAPI_PATCHES = (
     ('"cuopt_tpu.c_api_embed"', '"cuopt_torch.c_api_embed"', 1),
     ('"(iidLLLLLLLLLi)"', '"(iiidLLLLLLLLLi)"', 2),
 )
+# (text in cpp/dual_simplex/simplex.cpp, the port's text, times): when
+# the starting basis cannot be factorized (a crossover's crash basis can
+# fail even after rank repair), Solve returns Finish(kNumerical, ...) at
+# :99 and :120 before ComputeXb, and Finish reads the empty x_B, duals and
+# reduced costs (:885), which kills the process (ROADMAP Queue 3). The
+# port's copy returns NUMERICAL there with zero vectors of the right
+# sizes, which the C entry point copies out as it copies any result.
+SIMPLEX_PATCHES = (
+    ("Finish(kNumerical, 0, x_out, y_out, dj_out,",
+     "FinishUnfactored(kNumerical, 0, x_out, y_out, dj_out,", 2),
+    ("  int Finish(int status, int iter, std::vector<double>* x_out,\n",
+     "  // cuopt_torch's copy: a basis that never factorized has no x_B,\n"
+     "  // duals or reduced costs to report\n"
+     "  int FinishUnfactored(int status, int iter,\n"
+     "                       std::vector<double>* x_out,\n"
+     "                       std::vector<double>* y_out,\n"
+     "                       std::vector<double>* dj_out,\n"
+     "                       std::vector<int8_t>* vstat_out,\n"
+     "                       int* iters_out) {\n"
+     "    if (iters_out) *iters_out = iter;\n"
+     "    x_out->assign(p_.n, 0.0);\n"
+     "    y_out->assign(m_, 0.0);\n"
+     "    dj_out->assign(p_.n, 0.0);\n"
+     "    if (vstat_out) vstat_out->clear();\n"
+     "    return status;\n"
+     "  }\n\n"
+     "  int Finish(int status, int iter, std::vector<double>* x_out,\n", 1),
+)
 CHECK_SOURCE = CSRC / "c_api_check.c"
 # cuopt_tpu's flags, plus -fno-gnu-unique: the simplex options are C++
 # inline variables, which g++ otherwise binds once per process across
@@ -67,6 +96,8 @@ CHECK_SOURCE = CSRC / "c_api_check.c"
 # with cuopt_tpu's copy. The flag changes the symbols' binding only; the
 # machine code is the same (objdump -d of both builds is identical).
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared", "-fno-gnu-unique")
+# -I cpp/dual_simplex finds sparse_lu.hpp from the simplex's copy in _build/
+SIMPLEX_FLAGS = HOST_FLAGS + ("-I", str(SIMPLEX_DIR))
 # -I cpp/c_api keeps the source's #include "../include/cuopt_c.h" working
 # from its copy in _build/
 CAPI_FLAGS = ("-O2", "-fPIC", "-shared", "-I", str(CAPI_DIR), "-I",
@@ -144,12 +175,33 @@ def _digest(parts, flags) -> str:
     return h.hexdigest()[:16]
 
 
+def _patch(text: str, patches, source: str) -> tuple[str, list[str]]:
+    """`text` with `patches` applied, and what did not match: each
+    (old, new, times) must find `old` exactly `times` times."""
+    wrong = []
+    for old, new, times in patches:
+        if text.count(old) != times:
+            wrong.append(f"{source} holds {old!r} {text.count(old)} times, "
+                         f"not {times}: the port's copy cannot be made")
+        text = text.replace(old, new)
+    return text, wrong
+
+
+def simplex_source() -> tuple[bytes, list[str]]:
+    """cpp/dual_simplex/simplex.cpp with SIMPLEX_PATCHES applied, and the
+    patches that did not match (raised after the compile, so that a
+    source that does not compile reports the compiler's output)."""
+    text, wrong = _patch((SIMPLEX_DIR / "simplex.cpp").read_text(),
+                         SIMPLEX_PATCHES, "cpp/dual_simplex/simplex.cpp")
+    return text.encode(), wrong
+
+
 def simplex_target() -> Path:
-    """Library path for the host simplex at its sources' current content."""
-    return BUILD_DIR / (
-        f"libsimplex-"
-        f"{_digest([SIMPLEX_DIR / f for f in SIMPLEX_SOURCES], HOST_FLAGS)}"
-        f".so")
+    """Library path for the host simplex at its sources' current content
+    and patches."""
+    parts = [simplex_source()[0]] + [SIMPLEX_DIR / f
+                                     for f in SIMPLEX_SOURCES[1:]]
+    return BUILD_DIR / f"libsimplex-{_digest(parts, SIMPLEX_FLAGS)}.so"
 
 
 def mps_target() -> Path:
@@ -160,13 +212,10 @@ def capi_source(patches=CAPI_PATCHES) -> bytes:
     """cpp/c_api/cuopt_c.c with `patches` applied: the port's bridge in
     place of cuopt_tpu's, and the create calls' argument format
     repaired."""
-    text = (CAPI_DIR / "cuopt_c.c").read_text()
-    for old, new, times in patches:
-        if text.count(old) != times:
-            raise RuntimeError(
-                f"cpp/c_api/cuopt_c.c holds {old} {text.count(old)} times, "
-                f"not {times}: the port's copy cannot be made")
-        text = text.replace(old, new)
+    text, wrong = _patch((CAPI_DIR / "cuopt_c.c").read_text(), patches,
+                         "cpp/c_api/cuopt_c.c")
+    if wrong:
+        raise RuntimeError("; ".join(wrong))
     return text.encode()
 
 
@@ -224,10 +273,25 @@ class Builder:
                              CSRC / f"{name}.cu")
 
     def build_simplex(self) -> float | None:
-        """Compile cpp/dual_simplex/simplex.cpp unless its library exists,
-        with the flags cuopt_tpu builds it under."""
-        return self._compile(self.SIMPLEX, simplex_target(),
-                             [gxx(), *HOST_FLAGS], SIMPLEX_DIR / "simplex.cpp")
+        """Write the port's copy of cpp/dual_simplex/simplex.cpp (with
+        SIMPLEX_PATCHES) to _build/ and compile it unless its library
+        exists, with the flags cuopt_tpu builds it under."""
+        lib = simplex_target()
+        if lib.exists():
+            return None
+        text, wrong = simplex_source()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        copy = lib.with_name(lib.name[3:].replace(".so", ".cpp"))
+        tmp = copy.with_name(
+            f"{copy.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_bytes(text)
+        os.replace(tmp, copy)
+        took = self._compile(self.SIMPLEX, lib,
+                             [gxx(), *SIMPLEX_FLAGS], copy)
+        if wrong:
+            lib.unlink()
+            raise RuntimeError("; ".join(wrong))
+        return took
 
     def build_mps(self) -> float | None:
         """Compile cpp/mps_parser/mps_parser.cpp unless its library

@@ -23,6 +23,16 @@ one sparsity pattern (the B&B node-relaxation case), or ELL padded to a
 common width. The fused row pass is a per-problem kernel and stays off.
 Groups of fewer than two members, and groups too large for a stacked
 operator, are solved one by one with `solve_lp`; nothing else falls back.
+
+With a `mesh` (parallel/sharding.py) each group is split over the mesh's
+shards, as cuopt_tpu shards the batch axis (batch.py:123-147): padded to
+a multiple of the shard count by repeating its last member (the
+duplicates are solved and their results dropped), each shard runs the
+stacked program of its own members on its own device and stream, and
+the answers come back in the members' order. The shards need no
+collective: every member follows its own trajectory, and every member
+of a batch takes the same number of steps per major, so each shard's
+loop ends where the whole batch's would have ended for its members.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from cuopt_torch.lp.pdlp import (
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.lp.solution import Solution
 from cuopt_torch.lp.solve import solve_lp
+from cuopt_torch.parallel.sharding import run_spmd
 from cuopt_torch.sparse.ops import EllOp
 from cuopt_torch.utils.timer import Timer
 
@@ -73,11 +84,12 @@ def _groupable(prob, settings):
     )
 
 
-def batch_solve(probs, settings=None, device="cuda") -> list[Solution]:
+def batch_solve(probs, settings=None, device="cuda",
+                mesh=None) -> list[Solution]:
     """Solve a list of LPs; same-shape members are stacked into one
     batched program on `device` (reference BatchSolve,
-    solver/solver.py:101). "cuda" unless the caller asks for "cpu":
-    without a card the call raises."""
+    solver/solver.py:101), or split over the shards of `mesh`. "cuda"
+    unless the caller asks for "cpu": without a card the call raises."""
     settings = settings or PDLPSolverSettings()
     device = torch.device(device)
     torch.empty(0, device=device)  # no card: raises here, not later
@@ -95,8 +107,11 @@ def batch_solve(probs, settings=None, device="cuda") -> list[Solution]:
         kind = _pick_batch_kind(members)
         if kind is None:
             continue
-        for i, sol in zip(idxs, _solve_stacked(members, settings, kind,
-                                               device)):
+        if mesh is None:
+            sols = _solve_stacked(members, settings, kind, device)
+        else:
+            sols = _solve_sharded(members, settings, kind, mesh)
+        for i, sol in zip(idxs, sols):
             results[i] = sol
     for i, p in enumerate(probs):
         if results[i] is None:
@@ -255,6 +270,18 @@ def _solve_stacked(probs, settings, kind, device):
             raw["reduced_cost"] = -raw["reduced_cost"]
         out.append(Solution(p, raw))
     return out
+
+
+def _solve_sharded(probs, settings, kind, mesh):
+    """The batch split over the shards of `mesh` (see the module
+    docstring)."""
+    D, B = mesh.size, len(probs)
+    padded = list(probs) + [probs[-1]] * ((-B) % D)
+    per = len(padded) // D
+    chunks = [(padded[d * per:(d + 1) * per],) for d in range(D)]
+    out = run_spmd(mesh, lambda comm, members: _solve_stacked(
+        members, settings, kind, comm.device), chunks)
+    return [sol for sols in out for sol in sols][:B]
 
 
 def _extract_one(report, b, use_avg, status, timer):

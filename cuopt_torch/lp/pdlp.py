@@ -19,6 +19,12 @@ device:
   - An attempt (`_attempt`) and the end of a major (`major_tail`) are
     pure tensor code: lp/batch.py runs them under torch.func.vmap over a
     stack of same-shape problems.
+  - On a mesh (parallel/sharding.py) the same code runs once per shard
+    on the shard's rows: every sum, dot and maximum over a sharded
+    vector goes through the shard's packed collectives (`_red`), and
+    the step takes the single-exchange `halo_attempt` where the operator
+    has a halo extension. Without a mesh each reduction is the plain
+    torch call it always was, so the solo path keeps its bits.
 
 Problem form (minimize):  min c^T x  s.t.  l_c <= Ax <= u_c,
 l_v <= x <= u_v. The two-sided dual projection is the proximal step of
@@ -48,8 +54,14 @@ from cuopt_torch.kernels.build import BUILDER
 from cuopt_torch.lp.pdhg_fused import (
     ROW_PASS_ATOMIC, fused_pass_supported, fused_row_pass)
 from cuopt_torch.lp.settings import PDLPSolverSettings
+from cuopt_torch.parallel.sharding import (
+    ShardedProblem,
+    gather_state,
+    shard_problem_and_state,
+    sharded_major,
+)
 from cuopt_torch.sparse import PermutedOp, build_operator
-from cuopt_torch.sparse.ops import operator_from_arrays
+from cuopt_torch.sparse.ops import halo_attempt, operator_from_arrays
 from cuopt_torch.utils.logger import get_logger
 from cuopt_torch.utils.timer import Timer
 from cuopt_torch.utils.tracing import (
@@ -159,8 +171,16 @@ def _max0(v):
     return v.amax().clamp(min=0.0)
 
 
+def _red(dev):
+    """The whole-problem reductions of one shard of a mesh
+    (parallel/sharding.py ShardReduce: `psum` and `pmax` of local
+    partials, each tagged "x" or "y" for the vector space it ran over),
+    or None for an unsharded problem, whose partials are already whole."""
+    return getattr(dev.op, "red", None)
+
+
 def _lagrangian_info(c, lv0, uv0, lc0, uc0, lv_fin, uv_fin, lc_fin, uc_fin,
-                     offset, x, y, activity, aty):
+                     offset, x, y, activity, aty, red=None):
     """Primal/dual objectives, residual norms and gap for an iterate.
 
     Mirrors reference convergence_information.cu (primal residual =
@@ -176,24 +196,30 @@ def _lagrangian_info(c, lv0, uv0, lc0, uc0, lv_fin, uv_fin, lc_fin, uc_fin,
     rm = (-r).clamp(min=0.0)
     dual_res = torch.where(lv_fin, 0.0, rp) + torch.where(uv_fin, 0.0, rm)
 
-    primal_obj = torch.dot(c, x) + offset
+    cx = torch.dot(c, x)
     yp = y.clamp(min=0.0)
     ym = (-y).clamp(min=0.0)
-    dual_obj = (
-        (torch.where(lc_fin, lc0 * yp, 0.0)
-         - torch.where(uc_fin, uc0 * ym, 0.0)).sum()
-        + (torch.where(lv_fin, lv0 * rp, 0.0)
-           - torch.where(uv_fin, uv0 * rm, 0.0)).sum()
-        + offset
-    )
+    dual_y = (torch.where(lc_fin, lc0 * yp, 0.0)
+              - torch.where(uc_fin, uc0 * ym, 0.0)).sum()
+    dual_x = (torch.where(lv_fin, lv0 * rp, 0.0)
+              - torch.where(uv_fin, uv0 * rm, 0.0)).sum()
+    pp = (primal_res * primal_res).sum()
+    dd = (dual_res * dual_res).sum()
+    linf_p, linf_d = _max0(primal_res), _max0(dual_res)
+    if red is not None:
+        cx, dual_y, dual_x, pp, dd = red.psum(
+            [(cx, "x"), (dual_y, "y"), (dual_x, "x"), (pp, "y"), (dd, "x")])
+        linf_p, linf_d = red.pmax([(linf_p, "y"), (linf_d, "x")])
+    primal_obj = cx + offset
+    dual_obj = dual_y + dual_x + offset
     return dict(
         primal_obj=primal_obj,
         dual_obj=dual_obj,
         gap=(primal_obj - dual_obj).abs(),
-        l2_primal_res=torch.sqrt((primal_res * primal_res).sum()),
-        l2_dual_res=torch.sqrt((dual_res * dual_res).sum()),
-        linf_primal_res=_max0(primal_res),
-        linf_dual_res=_max0(dual_res),
+        l2_primal_res=torch.sqrt(pp),
+        l2_dual_res=torch.sqrt(dd),
+        linf_primal_res=linf_p,
+        linf_dual_res=linf_d,
     )
 
 
@@ -201,7 +227,7 @@ def _scaled_info(dev: DeviceProblem, x, y, ax, aty):
     return _lagrangian_info(
         dev.c, dev.lv0, dev.uv0, dev.lc0, dev.uc0,
         dev.lv_fin, dev.uv_fin, dev.lc_fin, dev.uc_fin,
-        dev.offset, x, y, ax, aty,
+        dev.offset, x, y, ax, aty, _red(dev),
     )
 
 
@@ -213,7 +239,7 @@ def _unscaled_info(dev: DeviceProblem, x, y, ax, aty):
         dev.lv_fin, dev.uv_fin, dev.lc_fin, dev.uc_fin,
         dev.offset,
         x * dev.col_scale, y * dev.row_scale,
-        ax / dev.row_scale, aty / dev.col_scale,
+        ax / dev.row_scale, aty / dev.col_scale, _red(dev),
     )
 
 
@@ -231,6 +257,10 @@ def _kkt_score(info, omega):
 def _use_fused(dev: DeviceProblem, dtype, cfg: StaticCfg) -> bool:
     """Whether the step runs the fused row pass (lp/pdhg_fused.py)."""
     if cfg.fused_kernel == "off":
+        return False
+    # a shard of a mesh runs the plain products, as cuopt_tpu turns its
+    # Pallas pass off under a mesh (pdhg_pallas.py:52-53)
+    if getattr(dev.op, "comm", None) is not None:
         return False
     if not fused_pass_supported(dev.op, dtype):
         return False
@@ -267,6 +297,18 @@ def _attempt(dev: DeviceProblem, s: SolverState, cfg: StaticCfg, grad,
         movement = 0.5 * omega * torch.dot(dx, dx) + 0.5 / omega * dy_dot
         xx = torch.dot(x_new, x_new)
         yy = torch.dot(y_new, y_new)
+    elif getattr(dev.op, "halo_meta", None) is not None:
+        # one shard of a mesh, single-exchange attempt (sparse/ops.py
+        # halo_attempt): 2 ppermutes + 1 packed psum
+        sent = big / 8.0 / sigma.clamp(min=1.0)
+        lc0m = torch.where(dev.lc_fin, dev.lc0, -sent)
+        uc0m = torch.where(dev.uc_fin, dev.uc0, sent)
+        x_new, y_new, ax_new, aty_new, sums = halo_attempt(
+            dev.op, s.x, s.aty, dev.c, dev.lv, dev.uv, s.ax, s.y, lc0m,
+            uc0m, tau, sigma, omega)
+        dxdx, xx, dydy, inter_raw, yy = sums.unbind()
+        interaction = inter_raw.abs()
+        movement = 0.5 * omega * dxdx + 0.5 / omega * dydy
     else:
         ax_new = dev.op.matvec(x_new)
         ax_tilde = 2.0 * ax_new - s.ax
@@ -282,8 +324,16 @@ def _attempt(dev: DeviceProblem, s: SolverState, cfg: StaticCfg, grad,
         dxdx = (dx * dx).sum()
         xx = (x_new * x_new).sum()
         dydy = (dy * dy).sum()
-        interaction = (dy * (ax_new - s.ax)).sum().abs()
+        inter_raw = (dy * (ax_new - s.ax)).sum()
         yy = (y_new * y_new).sum()
+        red = _red(dev)
+        if red is not None:
+            # the five sums of the step in one packed psum (cuopt_tpu
+            # _packed_sums, pdlp.py:227)
+            dxdx, xx, dydy, inter_raw, yy = red.psum(
+                [(dxdx, "x"), (xx, "x"), (dydy, "y"), (inter_raw, "y"),
+                 (yy, "y")])
+        interaction = inter_raw.abs()
         movement = 0.5 * omega * dxdx + 0.5 / omega * dydy
     eta_limit = torch.where(interaction > 0.0, movement / interaction, big)
     valid = eta <= eta_limit
@@ -351,8 +401,12 @@ def _ray_scores(dev: DeviceProblem, x_ray, y_ray):
     primal ray certifies dual infeasibility (max primal ray
     infeasibility ~ 0, c . x_ray < 0)."""
     eps = 1e-32
-    # --- dual ray ---
+    red = _red(dev)
     y_norm = _max0(y_ray.abs())
+    x_norm = _max0(x_ray.abs())
+    if red is not None:
+        y_norm, x_norm = red.pmax([(y_norm, "y"), (x_norm, "x")])
+    # --- dual ray ---
     yn = y_ray / (y_norm + eps)
     yp = yn.clamp(min=0.0)
     ym = (-yn).clamp(min=0.0)
@@ -365,22 +419,15 @@ def _ray_scores(dev: DeviceProblem, x_ray, y_ray):
     r = -aty_ray
     rp = r.clamp(min=0.0)
     rm = (-r).clamp(min=0.0)
-    dual_viol = torch.maximum(
-        _max0(torch.where(dev.lc_fin, 0.0, yp)),
-        _max0(torch.where(dev.uc_fin, 0.0, ym)),
-    )
-    dual_viol = torch.maximum(dual_viol, torch.maximum(
-        _max0(torch.where(dev.lv_fin, 0.0, rp)),
-        _max0(torch.where(dev.uv_fin, 0.0, rm)),
-    ))
-    dual_ray_obj = (
-        (torch.where(dev.lc_fin, dev.lc0_orig * yp, 0.0)
-         - torch.where(dev.uc_fin, dev.uc0_orig * ym, 0.0)).sum()
-        + (torch.where(dev.lv_fin, dev.lv0_orig * rp, 0.0)
-           - torch.where(dev.uv_fin, dev.uv0_orig * rm, 0.0)).sum()
-    )
+    maxes = [(_max0(torch.where(dev.lc_fin, 0.0, yp)), "y"),
+             (_max0(torch.where(dev.uc_fin, 0.0, ym)), "y"),
+             (_max0(torch.where(dev.lv_fin, 0.0, rp)), "x"),
+             (_max0(torch.where(dev.uv_fin, 0.0, rm)), "x")]
+    sums = [((torch.where(dev.lc_fin, dev.lc0_orig * yp, 0.0)
+              - torch.where(dev.uc_fin, dev.uc0_orig * ym, 0.0)).sum(), "y"),
+            ((torch.where(dev.lv_fin, dev.lv0_orig * rp, 0.0)
+              - torch.where(dev.uv_fin, dev.uv0_orig * rm, 0.0)).sum(), "x")]
     # --- primal ray ---
-    x_norm = _max0(x_ray.abs())
     xn = x_ray / (x_norm + eps)
     ax_ray = dev.op.matvec(x_ray / dev.col_scale) / dev.row_scale / (
         x_norm + eps)
@@ -396,8 +443,17 @@ def _ray_scores(dev: DeviceProblem, x_ray, y_ray):
         torch.where(dev.lv_fin, (-xn).clamp(min=0.0),
                     torch.where(dev.uv_fin, xn.clamp(min=0.0), 0.0)),
     )
-    primal_viol = torch.maximum(_max0(row_viol), _max0(var_viol))
-    primal_ray_obj = torch.dot(dev.c_orig, xn)
+    maxes += [(_max0(row_viol), "y"), (_max0(var_viol), "x")]
+    sums.append((torch.dot(dev.c_orig, xn), "x"))
+    if red is not None:
+        maxes = [(v, sp) for v, (_, sp) in zip(red.pmax(maxes), maxes)]
+        sums = [(v, sp) for v, (_, sp) in zip(red.psum(sums), sums)]
+    (m_lc, _), (m_uc, _), (m_lv, _), (m_uv, _), (m_row, _), (m_var, _) = maxes
+    (obj_y, _), (obj_x, _), (primal_ray_obj, _) = sums
+    dual_viol = torch.maximum(torch.maximum(m_lc, m_uc),
+                              torch.maximum(m_lv, m_uv))
+    dual_ray_obj = obj_y + obj_x
+    primal_viol = torch.maximum(m_row, m_var)
     return dict(
         has_dual_ray=y_norm > 0.0,
         max_dual_ray_infeasibility=dual_viol,
@@ -449,7 +505,17 @@ def _localized_gap(dev: DeviceProblem, x, y, ax, aty, omega, xr, yr):
     result needs no host sync."""
     big = torch.full((), 1e30, dtype=x.dtype, device=x.device)
     eps = 1e-12
-    r2 = omega * ((x - xr) ** 2).sum() + ((y - yr) ** 2).sum() / omega
+    red = _red(dev)
+
+    def xy_sums(px, py):
+        # every shard leaves the bracket and the bisection at the same
+        # step: they read the same psum'd bits
+        if red is None:
+            return px, py
+        return red.psum([(px, "x"), (py, "y")])
+
+    sx, sy = xy_sums(((x - xr) ** 2).sum(), ((y - yr) ** 2).sum())
+    r2 = omega * sx + sy / omega
     r = torch.sqrt(r2)
 
     # primal: maximize (-(c - A^T y))^T dx, dx in [lv - x, uv - x]
@@ -481,7 +547,8 @@ def _localized_gap(dev: DeviceProblem, x, y, ax, aty, omega, xr, yr):
         return dx, dy
 
     def norm_w(dx, dy):
-        return omega * (dx * dx).sum() + (dy * dy).sum() / omega
+        sx, sy = xy_sums((dx * dx).sum(), (dy * dy).sum())
+        return omega * sx + sy / omega
 
     # bracket: grow mu until the ball constraint holds
     mu_lo = torch.full((), 1e-16, dtype=x.dtype, device=x.device)
@@ -501,7 +568,8 @@ def _localized_gap(dev: DeviceProblem, x, y, ax, aty, omega, xr, yr):
     # if even mu_lo keeps us inside the ball, the box binds: use d(mu_lo)
     box_binds = n0 <= r2
     dx, dy = d_of_mu(torch.where(box_binds, mu_lo, hi))
-    gain = torch.dot(g_x, dx) + torch.dot(g_y, dy)
+    gx, gy = xy_sums(torch.dot(g_x, dx), torch.dot(g_y, dy))
+    gain = gx + gy
     return torch.where(r > 0.0, gain / r.clamp(min=eps), float("inf"))
 
 
@@ -541,8 +609,13 @@ def _maybe_restart(dev: DeviceProblem, s: SolverState, cfg: StaticCfg,
 
     # primal weight update from distances traveled since last restart
     eps_guard = 1e-10
-    pdist = torch.sqrt(((cand_x - s.x_last_restart) ** 2).sum())
-    ddist = torch.sqrt(((cand_y - s.y_last_restart) ** 2).sum())
+    px = ((cand_x - s.x_last_restart) ** 2).sum()
+    py = ((cand_y - s.y_last_restart) ** 2).sum()
+    red = _red(dev)
+    if red is not None:
+        px, py = red.psum([(px, "x"), (py, "y")])
+    pdist = torch.sqrt(px)
+    ddist = torch.sqrt(py)
     valid_dist = (pdist > eps_guard) & (pdist < 1.0 / eps_guard) & (
         ddist > eps_guard) & (ddist < 1.0 / eps_guard)
     theta = hp.primal_weight_update_smoothing
@@ -607,11 +680,16 @@ def major_tail(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
                 info["primal_obj"].abs() + info["dual_obj"].abs())
             return ok_p & ok_d & ok_g
 
-        rhs_norm = torch.sqrt((torch.maximum(
+        rhs2 = (torch.maximum(
             torch.where(dev.lc_fin, dev.lc0_orig.abs(), 0.0),
             torch.where(dev.uc_fin, dev.uc0_orig.abs(), 0.0),
-        ) ** 2).sum())
-        c_norm = torch.sqrt((dev.c_orig ** 2).sum())
+        ) ** 2).sum()
+        c2 = (dev.c_orig ** 2).sum()
+        red = _red(dev)
+        if red is not None:
+            rhs2, c2 = red.psum([(rhs2, "y"), (c2, "x")])
+        rhs_norm = torch.sqrt(rhs2)
+        c_norm = torch.sqrt(c2)
         opt_cur = optimal(info_cur, rhs_norm, c_norm)
         opt_avg = optimal(info_avg, rhs_norm, c_norm)
 
@@ -666,8 +744,18 @@ def major_tail(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
 
 def make_major_fn(cfg: StaticCfg):
     """The major-iteration function for this configuration:
-    (dev, state) -> (state, report)."""
-    return partial(major_iteration, cfg=cfg)
+    (dev, state) -> (state, report). Given a ShardedProblem and its
+    ShardedState (parallel/sharding.py) it runs the major on every shard
+    under run_spmd and returns the report whole on the first shard's
+    device, with the run's collectives and bytes exchanged."""
+    one = partial(major_iteration, cfg=cfg)
+
+    def major(dev, s):
+        if isinstance(dev, ShardedProblem):
+            return sharded_major(one, dev, s)
+        return one(dev, s)
+
+    return major
 
 
 # ============================================================== scaling
@@ -944,12 +1032,16 @@ class PdlpSolver:
     """Host driver: builds the device problem, runs major iterations,
     checks time/iteration limits between them (reference pdlp.cu
     run_solver :984). Runs on `device` (default "cuda"; a missing card
-    raises, nothing falls back to the CPU)."""
+    raises, nothing falls back to the CPU). With a `mesh`
+    (parallel/sharding.py) the problem is built and scaled on `device`,
+    then split over the mesh's shards, and every major runs sharded."""
 
-    def __init__(self, prob, settings: PDLPSolverSettings, device="cuda"):
+    def __init__(self, prob, settings: PDLPSolverSettings, device="cuda",
+                 mesh=None):
         self.prob = prob
         self.settings = settings
         self.device = torch.device(device)
+        self.mesh = mesh
         self.hp = PRESETS[settings.pdlp_solver_mode]
         # large instances check termination every ~160 steps instead of
         # 40, as cuopt_tpu does (pdlp.py:981-984), so that both packages
@@ -1007,6 +1099,9 @@ class PdlpSolver:
             state = initial_state(dev, self.hp, self.dtype,
                                   settings.initial_primal_solution,
                                   settings.initial_dual_solution)
+        run_dev = dev
+        if self.mesh is not None:
+            run_dev, state = shard_problem_and_state(dev, state, self.mesh)
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
         use_avg = False
@@ -1020,7 +1115,8 @@ class PdlpSolver:
             f"PDLP: {prob.n_constraints} rows, {prob.n_variables} cols, "
             f"{prob.nnz} nnz, operator={type(dev.op).__name__}, "
             f"dtype={settings.dtype}, device={self.device}, "
-            f"fused={_use_fused(dev, self.dtype, self.cfg)}")
+            f"fused={_use_fused(dev, self.dtype, self.cfg)}"
+            + ("" if self.mesh is None else f", mesh={self.mesh}"))
         lo = prob.constraint_lower_bounds
         hi = prob.constraint_upper_bounds
         b_abs = np.maximum(np.abs(np.where(np.isfinite(lo), lo, 0.0)),
@@ -1029,7 +1125,7 @@ class PdlpSolver:
         t = settings.tolerances
         t_first_major = None
         while True:
-            state, report = major_fn(dev, state)
+            state, report = major_fn(run_dev, state)
             # ONE device->host transfer for all per-major scalars
             packed = _np(torch.stack(
                 [report[k].to(torch.float64) for k in _SCALAR_KEYS]
@@ -1128,6 +1224,8 @@ class PdlpSolver:
             "loop_steps": it - it0,
             "loop_attempts": attempts - attempts0,
         }
+        if self.mesh is not None:
+            state = gather_state(state)
         if settings.save_best_primal_so_far and best_primal is not None \
                 and best_primal[0] < sol["primal_objective"]:
             sol["primal_solution"] = best_primal[1]

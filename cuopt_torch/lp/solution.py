@@ -81,7 +81,8 @@ class Solution:
             "linf_primal_residual", "linf_dual_residual",
             "iterations", "attempts", "solve_time", "solved_by",
             "compile_s", "solve_loop_s", "loop_steps", "loop_attempts",
-            "crossover_iterations", "race", "pdlp_error",
+            "crossover_iterations", "crossover_status", "race",
+            "pdlp_error",
             "nodes", "mip_gap", "solution_bound", "heuristic_errors",
             "mip_stats", "fj",
         )

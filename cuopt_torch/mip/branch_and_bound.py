@@ -23,6 +23,7 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from cuopt_torch import constants as C
 from cuopt_torch.dual_simplex import is_available
@@ -32,6 +33,7 @@ from cuopt_torch.lp.pdlp import PdlpSolver
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.mip.presolve import propagate_bounds
 from cuopt_torch.mip.rounding import fits_simplex, is_feasible
+from cuopt_torch.parallel.sharding import make_mesh
 from cuopt_torch.utils.logger import get_logger
 from cuopt_torch.utils.timer import Timer
 
@@ -365,8 +367,11 @@ class BranchAndBound:
     def _solve_relaxations_batch(self, nodes, timer):
         """Batched node relaxations: the frontier nodes share one sparsity
         pattern (only the variable bounds differ), so lp/batch.py stacks
-        them into ONE batched PDLP program on `device`. Returns raw dicts
-        per node; a failure raises."""
+        them into ONE batched PDLP program on `device`, split over a mesh
+        of min(cards, nodes) cards when the tree solves on a card and
+        more than one is attached (cuopt_tpu branch_and_bound.py:394-401,
+        without its silent fallbacks). Returns raw dicts per node; a
+        failure raises."""
         s = PDLPSolverSettings()
         s.method = C.CUOPT_METHOD_PDLP
         s.set_optimality_tolerance(self.node_lp_tol)
@@ -375,7 +380,13 @@ class BranchAndBound:
         if timer is not None:
             s.time_limit = max(timer.remaining(), 0.5)
         probs = [self._node_problem(n.lv, n.uv) for n in nodes]
-        raws = [sol._raw for sol in batch_solve(probs, s, self.device)]
+        mesh = None
+        cards = torch.cuda.device_count()
+        if torch.device(self.device).type == "cuda" and cards > 1 and \
+                len(nodes) > 1:
+            mesh = make_mesh(min(cards, len(nodes)))
+        raws = [sol._raw for sol in batch_solve(probs, s, self.device,
+                                                mesh=mesh)]
         for r in raws:
             self.simplex_iters += r.get("iterations", 0)
         return raws

@@ -14,7 +14,11 @@ layouts) as cuopt_tpu/sparse/ops.py:
 
 Every operator holds its tensors on one device and supports matvec,
 rmatvec, rescale (diag(r) A diag(c), returning a new operator) and the
-abs reductions used by Ruiz / Pock-Chambolle scaling.
+abs reductions used by Ruiz / Pock-Chambolle scaling. `shard_operator`
+splits one over a mesh (parallel/sharding.py) into Sharded* forms that
+compute one shard's rows of Ax and columns of A^T y with explicit
+collectives, and `halo_attempt` is a PDHG attempt on one shard of a
+block-band operator with a single halo exchange.
 """
 
 from __future__ import annotations
@@ -362,6 +366,505 @@ class PermutedOp(LinearOperator):
 
     def col_abs_max(self):
         return self.inner.col_abs_max()[self.inv_col_perm]
+
+
+# ------------------------------------------------------- sharded operators
+# The forms each operator takes on one shard of a mesh (parallel/
+# sharding.py), following cuopt_tpu's _shard_operator (sharding.py:77-152).
+# A shard holds its rows of y-space vectors and its columns of x-space ones
+# (all of x when the layout replicates it); matvec maps the shard's x to its
+# rows of Ax, rmatvec its y to its columns of A^T y (all of A^T y when x is
+# replicated). The collectives go through `comm`, the shard's ShardComm,
+# bound for the length of one run (`bind`). Scaling runs before sharding,
+# so these forms need no rescale or abs reductions.
+@dataclass
+class _ShardedOp(LinearOperator):
+    layout: object  # parallel.sharding.Layout
+    rank: int
+    comm: object = field(default=None, repr=False)
+
+    @property
+    def shape(self):
+        return (self.layout.n_rows, self.layout.n_cols)
+
+    @property
+    def x_sharded(self) -> bool:
+        return self.layout.col_splits is not None
+
+    def bind(self, comm):
+        return self.replace(comm=comm)
+
+    @property
+    def red(self):
+        """Whole-problem reductions of this shard's partials."""
+        from cuopt_torch.parallel.sharding import ShardReduce
+
+        return ShardReduce(self.comm, self.layout)
+
+    def _x_full(self, x):
+        return self.comm.all_gather(x) if self.x_sharded else x
+
+    def _own_cols(self, v):
+        c0, c1 = self.layout.cols(self.rank)
+        return v[c0:c1]
+
+    def _own_rows(self, v):
+        r0, r1 = self.layout.rows(self.rank)
+        return v[r0:r1]
+
+
+@dataclass
+class ShardedDenseOp(_ShardedOp):
+    """Row block of A: Ax from the whole x, A^T y as a partial over the
+    shard's rows plus a psum."""
+
+    mat: torch.Tensor = None  # (rows of the shard, n_cols)
+
+    def matvec(self, x):
+        return self.mat @ self._x_full(x)
+
+    def rmatvec(self, y):
+        return self._own_cols(self.comm.psum(self.mat.T @ y))
+
+
+@dataclass
+class ShardedEllOp(_ShardedOp):
+    """Row-ELL of the shard's rows (global column indices) and the
+    column-ELL of its columns (all columns when x is replicated), which
+    reads an all-gathered y."""
+
+    row_vals: torch.Tensor = None
+    row_cols: torch.Tensor = None
+    col_vals: torch.Tensor = None
+    col_rows: torch.Tensor = None
+
+    def matvec(self, x):
+        return (self.row_vals * self._x_full(x)[self.row_cols]).sum(1)
+
+    def rmatvec(self, y):
+        y_full = self.comm.all_gather(y)
+        return (self.col_vals * y_full[self.col_rows]).sum(1)
+
+
+@dataclass
+class ShardedCsrOp(_ShardedOp):
+    """A 1/D chunk of each nonzero ordering, padded to a multiple of D by
+    zero entries aimed at the last row or column (cuopt_tpu
+    sharding.py:135-152): a partial segment sum over the whole output,
+    psum'd, and the shard's block of it."""
+
+    csr_vals: torch.Tensor = None
+    csr_rows: torch.Tensor = None
+    csr_cols: torch.Tensor = None
+    csc_vals: torch.Tensor = None
+    csc_rows: torch.Tensor = None
+    csc_cols: torch.Tensor = None
+
+    def matvec(self, x):
+        part = _segment_sum(self.csr_vals * self._x_full(x)[self.csr_cols],
+                            self.csr_rows, self.layout.n_rows)
+        return self._own_rows(self.comm.psum(part))
+
+    def rmatvec(self, y):
+        y_full = self.comm.all_gather(y)
+        part = _segment_sum(self.csc_vals * y_full[self.csc_rows],
+                            self.csc_cols, self.layout.n_cols)
+        full = self.comm.psum(part)
+        return self._own_cols(full) if self.x_sharded else full
+
+
+def pack_halos(xs, ys, Hx, Hy, side):
+    """One buffer of halos: the last ("tail") or first ("head") Hx entries
+    of each vector in xs, then Hy of each in ys. A halo is cut by its
+    length, v[len(v) - H:], so a zero halo packs nothing. (cuopt_tpu
+    writes v[-H:], sparse/ops.py:595, which is the WHOLE vector when H is
+    0: with Hx == 0 < Hy its split below reads x data as the y halos.)"""
+    def cut(v, H):
+        return v[len(v) - H:] if side == "tail" else v[:H]
+
+    return torch.cat([cut(v, Hx) for v in xs] + [cut(v, Hy) for v in ys])
+
+
+def split_halos(buf, n_x, n_y, Hx, Hy):
+    """The halos of pack_halos' buffer, in its order."""
+    out, o = [], 0
+    for H in [Hx] * n_x + [Hy] * n_y:
+        out.append(buf[o:o + H])
+        o += H
+    return out
+
+
+def _chain(D):
+    """ppermute pairs of the open chain: to the next shard, to the
+    previous one."""
+    return ([(i, i + 1) for i in range(D - 1)],
+            [(i + 1, i) for i in range(D - 1)])
+
+
+@dataclass
+class ShardedBlockBandOp(_ShardedOp):
+    """The shard's row slabs (its 128-row tiles) and column slabs (its
+    column tiles). Windows read the operand from an all-gathered vector
+    (the general path), or, where cuopt_tpu's static gates pass
+    (sparse/ops.py:321-322: tile counts and lengths divisible by D, no
+    ragged last tile, every window within one neighbour's block), from
+    the shard's block widened by a fixed halo that two neighbour
+    ppermutes bring (`_halo_apply`). The spill stays with the shard that
+    owns its row (row spill) or column (transpose spill).
+
+    With a halo extension (`build_halo_extension`) the PDHG attempt runs
+    as `halo_attempt`: one exchange per direction, then A x_new on row
+    slabs widened by ty tiles each side, so that A^T y_new needs no
+    second exchange."""
+
+    tile: int = 128
+    w_row: int = 0
+    w_col: int = 0
+    n_rows_loc: int = 0
+    n_cols_loc: int = 0   # the shard's column-tile block
+    row_slabs: torch.Tensor = None
+    row_win: torch.Tensor = None   # (Tl, w_row) into the padded whole x
+    col_slabs: torch.Tensor = None
+    col_win: torch.Tensor = None   # (Tcl, w_col) into the padded whole y
+    spill_vals: torch.Tensor = None
+    spill_rows: torch.Tensor = None  # local rows
+    spill_cols: torch.Tensor = None  # global columns
+    t_spill_vals: torch.Tensor = None
+    t_spill_rows: torch.Tensor = None  # local columns
+    t_spill_cols: torch.Tensor = None  # global rows
+    # fixed-halo applies: (H, (Tl, W) window index into the widened block)
+    row_halo: tuple = None
+    col_halo: tuple = None
+    # the single-exchange attempt: (D, Lr, Lc, Hx, Hy, ty), the widened
+    # row slabs (Tl + 2 ty, tile, w_row) and their windows into the
+    # widened x, and the column slabs' windows into the widened y
+    halo_meta: tuple = None
+    ext_row_slabs: torch.Tensor = None
+    ext_win: torch.Tensor = None
+    halo_col_win: torch.Tensor = None
+
+    def _halo_apply(self, v, H, win, slabs, n_out):
+        fwd, bwd = _chain(self.comm.size)
+        left = self.comm.ppermute(v[len(v) - H:], fwd)
+        right = self.comm.ppermute(v[:H], bwd)
+        width = win.shape[1]
+        v_ext = torch.cat([left, v, right, v.new_zeros(width)])
+        return torch.bmm(slabs, v_ext[win].unsqueeze(2)).reshape(-1)[:n_out]
+
+    def matvec(self, x):
+        if self.row_halo is not None:
+            H, win = self.row_halo
+            return self._halo_apply(x, H, win, self.row_slabs,
+                                    self.n_rows_loc)
+        x_full = self._x_full(x)
+        xw = BlockBandOp._windows(x_full, self.row_win)
+        out = torch.bmm(self.row_slabs, xw.unsqueeze(2)).reshape(-1)
+        out = out[: self.n_rows_loc]
+        if self.spill_vals.numel():
+            out = out + _segment_sum(self.spill_vals * x_full[self.spill_cols],
+                                     self.spill_rows, self.n_rows_loc)
+        return out
+
+    def rmatvec(self, y):
+        if self.col_halo is not None:
+            H, win = self.col_halo
+            return self._halo_apply(y, H, win, self.col_slabs,
+                                    self.n_cols_loc)
+        y_full = self.comm.all_gather(y)
+        yw = BlockBandOp._windows(y_full, self.col_win)
+        out = torch.bmm(self.col_slabs, yw.unsqueeze(2)).reshape(-1)
+        out = out[: self.n_cols_loc]
+        if self.t_spill_vals.numel():
+            out = out + _segment_sum(
+                self.t_spill_vals * y_full[self.t_spill_cols],
+                self.t_spill_rows, self.n_cols_loc)
+        return out if self.x_sharded else self.comm.all_gather(out)
+
+
+def halo_attempt(op: ShardedBlockBandOp, x, aty, c, lv, uv, ax, y,
+                 lc0m, uc0m, tau, sigma, omega):
+    """One PDHG attempt on one shard with a single halo exchange
+    (cuopt_tpu sparse/ops.py:558). The halos of (x, aty, c, lv, uv) and
+    (ax, y, lc0m, uc0m) ride one ppermute per direction; y_new is then
+    computed again on the Hy rows each side (from the widened row slabs),
+    so A^T y_new over the shard's own column tiles needs no second
+    exchange: 2 ppermutes + 1 packed psum per attempt. The first shard
+    receives zeros from the left and the last from the right, which the
+    zero slabs there multiply.
+
+    Returns (x_new, y_new, ax_new, aty_new, sums), sums the whole
+    [dx.dx, x_new.x_new, dy.dy, dy.(ax_new - ax), y_new.y_new]. lc0m and
+    uc0m are the row bounds with infinite sides at -+ the sentinel."""
+    comm = op.comm
+    D, Lr, Lc, Hx, Hy, ty = op.halo_meta
+    xs = (x, aty, c, lv, uv)
+    ys = (ax, y, lc0m, uc0m)
+    fwd, bwd = _chain(D)
+    left = split_halos(comm.ppermute(pack_halos(xs, ys, Hx, Hy, "tail"),
+                                     fwd), 5, 4, Hx, Hy)
+    right = split_halos(comm.ppermute(pack_halos(xs, ys, Hx, Hy, "head"),
+                                      bwd), 5, 4, Hx, Hy)
+    (x_e, aty_e, c_e, lv_e, uv_e, ax_e, y_e, lc0m_e, uc0m_e) = (
+        torch.cat([lo, v, hi]) for lo, v, hi in zip(left, xs + ys, right))
+    # primal step on the widened columns
+    x_new_e = torch.clamp(x_e - tau * (c_e - aty_e), lv_e, uv_e)
+    # A x_new over the widened row tiles (zero slabs past the ends)
+    xp = torch.cat([x_new_e, x.new_zeros(op.w_row)])
+    ax_new_e = torch.bmm(op.ext_row_slabs,
+                         xp[op.ext_win].unsqueeze(2)).reshape(-1)
+    # dual prox on the widened rows
+    ax_tilde = 2.0 * ax_new_e - ax_e
+    y_low = y_e + sigma * (lc0m_e - ax_tilde)
+    y_high = y_e + sigma * (uc0m_e - ax_tilde)
+    y_new_e = torch.where(y_low > 0.0, y_low,
+                          torch.where(y_high < 0.0, y_high, 0.0))
+    # A^T y_new over the shard's own column tiles
+    yp = torch.cat([y_new_e, y.new_zeros(op.w_col)])
+    aty_new = torch.bmm(op.col_slabs,
+                        yp[op.halo_col_win].unsqueeze(2)).reshape(-1)[:Lc]
+    x_new = x_new_e[Hx:Hx + Lc]
+    ax_new = ax_new_e[Hy:Hy + Lr]
+    y_new = y_new_e[Hy:Hy + Lr]
+    dx = x_new - x
+    dy = y_new - y
+    sums = comm.psum(torch.stack([
+        torch.dot(dx, dx), torch.dot(x_new, x_new), torch.dot(dy, dy),
+        torch.dot(dy, ax_new - ax), torch.dot(y_new, y_new)]))
+    return x_new, y_new, ax_new, aty_new, sums
+
+
+@dataclass
+class ShardedPermutedOp(_ShardedOp):
+    """A PermutedOp on a mesh: the permutations replicated, the inner
+    band sharded with the same layout. The solver never runs one (it
+    absorbs the permutation into the problem, lp/pdlp.py); each product
+    gathers the operand whole, permutes it, and gathers the inner
+    result back."""
+
+    inner: ShardedBlockBandOp = None
+    row_perm: torch.Tensor = None
+    inv_row_perm: torch.Tensor = None
+    col_perm: torch.Tensor = None
+    inv_col_perm: torch.Tensor = None
+
+    def bind(self, comm):
+        return self.replace(comm=comm, inner=self.inner.bind(comm))
+
+    def matvec(self, x):
+        xi = self._x_full(x)[self.col_perm]
+        yi = self.inner.matvec(self._own_cols(xi) if self.x_sharded
+                               else xi)
+        return self._own_rows(self.comm.all_gather(yi)[self.inv_row_perm])
+
+    def rmatvec(self, y):
+        yi = self._own_rows(self.comm.all_gather(y)[self.row_perm])
+        xi = self._x_full(self.inner.rmatvec(yi))[self.inv_col_perm]
+        return self._own_cols(xi) if self.x_sharded else xi
+
+
+def _halo_reach(starts, width, v_splits, t_splits):
+    """The largest reach of any shard's windows beyond its own block of
+    the operand (cuopt_tpu _halo_reach, sparse/ops.py:290), for the
+    blocks v_splits and the tile blocks t_splits; None when a window
+    reaches past a neighbour's block."""
+    H = 0
+    for d in range(len(v_splits) - 1):
+        ss = starts[t_splits[d]:t_splits[d + 1]]
+        if ss:
+            H = max(H, v_splits[d] - min(ss),
+                    max(s + width for s in ss) - v_splits[d + 1])
+    L = min(b - a for a, b in zip(v_splits[:-1], v_splits[1:]))
+    return H if H <= L else None
+
+
+def _halo_win(starts, width, v0, H, device):
+    """(T, width) window index into [left halo, block, right halo, pad]
+    for a block starting at v0 (boundary tiles read index 0: their slabs
+    are zero)."""
+    off = np.maximum(np.asarray(starts, np.int64) - v0 + H, 0)
+    return torch.as_tensor(np.add.outer(off, np.arange(width)),
+                           device=device)
+
+
+def _even(n, D):
+    return tuple(int(v) for v in np.arange(D + 1) * (n // D))
+
+
+def _shard_block_band(op: BlockBandOp, layout, mesh):
+    """Per-shard ShardedBlockBandOps of `op` (tile-aligned layout)."""
+    D, tile = mesh.size, op.tile
+    T, Tc = len(op.row_starts), len(op.col_starts)
+    # the column tiles split like the columns; when x is replicated, at
+    # tile boundaries all the same (each shard computes its tiles' A^T y)
+    col_splits = layout.col_splits or _tile_col_splits(op, D)
+    rt = [s // tile for s in layout.row_splits[:-1]] + [T]
+    ct = [s // tile for s in col_splits[:-1]] + [Tc]
+    no_spill = not op.spill_vals.numel() and not op.t_spill_vals.numel()
+    # the fixed-halo applies: cuopt_tpu's gates (sparse/ops.py:321-322),
+    # and a layout whose blocks are the even ones those gates assume
+    even_r = _even(op.n_rows, D)
+    even_c = _even(op.n_cols, D)
+
+    def gates(n_out, n_v, T_out, out_splits, v_splits):
+        return (D > 1 and no_spill and T_out % D == 0 and n_v % D == 0
+                and n_out % (tile * D) == 0 and n_out == T_out * tile
+                and tuple(out_splits) == _even(n_out, D)
+                and v_splits is not None and tuple(v_splits) == _even(n_v, D))
+
+    H_row = H_col = None
+    if gates(op.n_rows, op.n_cols, T, layout.row_splits, layout.col_splits):
+        H_row = _halo_reach(op.row_starts, op.w_row, even_c,
+                            [d * (T // D) for d in range(D + 1)])
+    if gates(op.n_cols, op.n_rows, Tc, layout.col_splits,
+             layout.row_splits):
+        H_col = _halo_reach(op.col_starts, op.w_col, even_r,
+                            [d * (Tc // D) for d in range(D + 1)])
+    ops = []
+    for d, device in enumerate(mesh.devices):
+        r0, r1 = layout.row_splits[d], layout.row_splits[d + 1]
+        c0, c1 = col_splits[d], col_splits[d + 1]
+
+        def own(vals, rows, cols, lo, hi):
+            m = (rows >= lo) & (rows < hi)
+            return (vals[m].to(device), (rows[m] - lo).to(device),
+                    cols[m].to(device))
+
+        sv, sr, sc = own(op.spill_vals, op.spill_rows, op.spill_cols, r0, r1)
+        tv, tr, tcl = own(op.t_spill_vals, op.t_spill_rows,
+                          op.t_spill_cols, c0, c1)
+        row_halo = col_halo = None
+        if H_row is not None:
+            row_halo = (H_row, _halo_win(op.row_starts[rt[d]:rt[d + 1]],
+                                         op.w_row, even_c[d], H_row, device))
+        if H_col is not None:
+            col_halo = (H_col, _halo_win(op.col_starts[ct[d]:ct[d + 1]],
+                                         op.w_col, even_r[d], H_col, device))
+        ops.append(ShardedBlockBandOp(
+            layout=layout, rank=d, tile=tile, w_row=op.w_row,
+            w_col=op.w_col, n_rows_loc=r1 - r0, n_cols_loc=c1 - c0,
+            row_slabs=op.row_slabs[rt[d]:rt[d + 1]].to(device),
+            row_win=op.row_win[rt[d]:rt[d + 1]].to(device),
+            col_slabs=op.col_slabs[ct[d]:ct[d + 1]].to(device),
+            col_win=op.col_win[ct[d]:ct[d + 1]].to(device),
+            spill_vals=sv, spill_rows=sr, spill_cols=sc,
+            t_spill_vals=tv, t_spill_rows=tr, t_spill_cols=tcl,
+            row_halo=row_halo, col_halo=col_halo))
+    return build_halo_extension(op, ops, mesh)
+
+
+def _tile_col_splits(op, D):
+    from cuopt_torch.parallel.sharding import _tile_splits
+
+    return _tile_splits(op.n_cols, op.tile, D)
+
+
+def build_halo_extension(op: BlockBandOp, ops, mesh):
+    """The single-exchange attempt's layout (cuopt_tpu sparse/ops.py:359),
+    added to each shard's op, or the ops unchanged when a static gate
+    fails. Shard d owns rows [d Lr, (d+1) Lr) and columns [d Lc,
+    (d+1) Lc). Its column tiles read y at most Hy = ty * tile rows past
+    its block, so the attempt computes y_new again on those rows, which
+    needs ax_new there, which needs the row slabs of ty more tiles each
+    side (zero past the ends) and x_new over an Hx-wide column halo."""
+    D, tile = mesh.size, op.tile
+    T, Tc = len(op.row_starts), len(op.col_starts)
+    layout = ops[0].layout
+    if (D <= 1 or op.n_rows % (tile * D) or op.n_cols % D
+            or T % D or op.n_rows != T * tile
+            or Tc % D or op.n_cols != Tc * tile
+            or op.spill_vals.numel() or op.t_spill_vals.numel()
+            or layout.col_splits is None):
+        return ops
+    Lr, Lc = op.n_rows // D, op.n_cols // D
+    Tpd = T // D
+    Hcol = _halo_reach(op.col_starts, op.w_col, _even(op.n_rows, D),
+                       [d * (Tc // D) for d in range(D + 1)])
+    if Hcol is None:
+        return ops
+    ty = -(-Hcol // tile)
+    Hy = ty * tile
+    if Hy > Lr:
+        return ops
+    rs = op.row_starts
+    Hx = 0
+    for d in range(D):
+        for t in range(d * Tpd - ty, (d + 1) * Tpd + ty):
+            if 0 <= t < T:
+                Hx = max(Hx, d * Lc - rs[t], rs[t] + op.w_row - (d + 1) * Lc)
+    if Hx > Lc:
+        return ops
+    out = []
+    for d, (sop, device) in enumerate(zip(ops, mesh.devices)):
+        lo, hi = d * Tpd - ty, (d + 1) * Tpd + ty
+        z = op.row_slabs.new_zeros((ty,) + tuple(op.row_slabs.shape[1:]))
+        parts = [z[:max(0, -lo)], op.row_slabs[max(lo, 0):min(hi, T)],
+                 z[:max(0, hi - T)]]
+        ext = torch.cat([p.to(device) for p in parts])
+        starts = [rs[t] if 0 <= t < T else None for t in range(lo, hi)]
+        off = np.array([0 if s is None else s - (d * Lc - Hx)
+                        for s in starts], np.int64)
+        ext_win = torch.as_tensor(np.add.outer(off, np.arange(op.w_row)),
+                                  device=device)
+        cst = np.asarray(op.col_starts[d * (Tc // D):(d + 1) * (Tc // D)],
+                         np.int64)
+        col_win = torch.as_tensor(
+            np.add.outer(cst - (d * Lr - Hy), np.arange(op.w_col)),
+            device=device)
+        out.append(sop.replace(halo_meta=(D, Lr, Lc, Hx, Hy, ty),
+                               ext_row_slabs=ext, ext_win=ext_win,
+                               halo_col_win=col_win))
+    return out
+
+
+def shard_operator(op, layout, mesh) -> list:
+    """The per-shard forms of `op` for `layout` on `mesh` (cuopt_tpu
+    _shard_operator, sharding.py:77): unbound, one per mesh entry."""
+    D = mesh.size
+    devs = mesh.devices
+
+    def base(d):
+        return dict(layout=layout, rank=d)
+
+    if isinstance(op, PermutedOp):
+        inner = shard_operator(op.inner, layout, mesh)
+        return [ShardedPermutedOp(
+            **base(d), inner=inner[d], row_perm=op.row_perm.to(dev),
+            inv_row_perm=op.inv_row_perm.to(dev),
+            col_perm=op.col_perm.to(dev),
+            inv_col_perm=op.inv_col_perm.to(dev))
+            for d, dev in enumerate(devs)]
+    if isinstance(op, BlockBandOp):
+        return _shard_block_band(op, layout, mesh)
+    if isinstance(op, DenseOp):
+        return [ShardedDenseOp(**base(d), mat=op.mat[slice(
+            *layout.rows(d))].to(dev)) for d, dev in enumerate(devs)]
+    if isinstance(op, EllOp):
+        out = []
+        for d, dev in enumerate(devs):
+            rows = slice(*layout.rows(d))
+            cols = slice(*layout.cols(d))
+            out.append(ShardedEllOp(
+                **base(d), row_vals=op.row_vals[rows].to(dev),
+                row_cols=op.row_cols[rows].to(dev),
+                col_vals=op.col_vals[cols].to(dev),
+                col_rows=op.col_rows[cols].to(dev)))
+        return out
+    if isinstance(op, CsrOp):
+        pad = (-op.csr_vals.shape[0]) % D
+
+        def padv(a, fill):
+            return torch.cat([a, a.new_full((pad,), fill)])
+
+        arrs = dict(
+            csr_vals=padv(op.csr_vals, 0), csr_rows=padv(op.csr_rows,
+                                                          op.n_rows - 1),
+            csr_cols=padv(op.csr_cols, 0), csc_vals=padv(op.csc_vals, 0),
+            csc_rows=padv(op.csc_rows, 0),
+            csc_cols=padv(op.csc_cols, op.n_cols - 1))
+        return [ShardedCsrOp(**base(d), **{
+            k: v.chunk(D)[d].to(dev) for k, v in arrs.items()})
+            for d, dev in enumerate(devs)]
+    raise TypeError(f"no sharded form of {type(op).__name__}")
 
 
 def operator_from_arrays(d: dict, device) -> LinearOperator:

@@ -506,3 +506,67 @@ def test_server_request_on_card(cuda, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=60)
+
+
+@pytest.mark.parametrize("n", [2048, 2000])
+def test_four_shards_on_one_card_match_the_unsharded_major(cuda, n):
+    """Two float64 majors on four shards of the card (each on its own
+    stream) against two unsharded majors from one state: x and y within
+    1e-9, equal steps, no row-pass launch. n = 2048 takes the halo path,
+    n = 2000 (a ragged last tile) the all-gather one."""
+    from cuopt_torch.lp import pdlp
+    from cuopt_torch.parallel import (gather_state, make_mesh,
+                                      shard_problem_and_state)
+
+    prob = generate_lp(n, n, 6, seed=3, band=192)
+    s = PDLPSolverSettings()
+    solver = pdlp.PdlpSolver(prob, s, cuda)
+    dev = pdlp.build_device_problem(prob, solver.hp, torch.float64,
+                                    "blockband", cuda)
+    st0 = pdlp.initial_state(dev, solver.hp, torch.float64)
+    fn = pdlp.make_major_fn(solver.cfg)
+    s1, _ = fn(dev, st0)
+    s1, _ = fn(dev, s1)
+    sdev, sst = shard_problem_and_state(
+        dev, st0, make_mesh(devices=[cuda] * 4))
+    assert (sdev.shards[0].op.halo_meta is not None) == (n == 2048)
+    pf.reset_counts()
+    sst, _ = fn(sdev, sst)
+    sst, _ = fn(sdev, sst)
+    assert all(k.launches == 0 for k in pf.KERNELS)
+    g = gather_state(sst)
+    assert int(g.total_steps) == int(s1.total_steps)
+    for a, b in ((g.x, s1.x), (g.y, s1.y)):
+        assert float(((a - b).abs() / (1 + b.abs())).max()) <= 1e-9
+
+
+def test_island_epoch_on_four_shards_of_the_card(cuda):
+    """One island epoch on four shards of the card equals its one-device
+    simulation, route for route."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.parallel import make_mesh
+    from cuopt_torch.routing.construction import cheapest_insertion
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.islands import (island_epoch,
+                                             make_island_members,
+                                             simulate_epoch)
+    from cuopt_torch.routing.local_search import build_ls_problem
+
+    prob = build_problem(synth_gh_instance(40, "C", seed=3).to_data_model())
+    routes, _ = cheapest_insertion(prob)
+    F = prob.n_fleet
+    L = max(len(r) for r in routes.values()) + 4
+    R0 = -np.ones((F, L), np.int64)
+    lens0 = np.zeros(F, np.int64)
+    for v, r in routes.items():
+        R0[v, :len(r)] = r
+        lens0[v] = len(r)
+    p = build_ls_problem(prob, device=cuda)
+    Rs, lenss = make_island_members(prob, R0, lens0, 8)
+    Rw, lw, cw, _ = simulate_epoch(p, Rs, lenss, 4, 5)
+    R4, l4, c4, _ = island_epoch(p, torch.as_tensor(Rs, device=cuda),
+                                 torch.as_tensor(lenss, device=cuda),
+                                 make_mesh(devices=[cuda] * 4), n_steps=5)
+    assert np.array_equal(R4.cpu().numpy(), Rw)
+    assert np.array_equal(l4.cpu().numpy(), lw)
+    np.testing.assert_allclose(c4.cpu().numpy(), cw, rtol=1e-5)

@@ -94,6 +94,40 @@ def test_surface_modules_stand_alone():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_multi_device_modules_stand_alone():
+    """cuopt_tpu's multi-device modules have their counterparts, which
+    import nothing but torch, numpy, the standard library and the port
+    itself; importing them loads neither JAX nor cuopt_tpu."""
+    modules = ["parallel/__init__.py", "parallel/sharding.py",
+               "routing/islands.py"]
+    for rel in modules:
+        assert (ROOT / "cuopt_tpu" / rel).exists(), rel
+        assert (ROOT / "cuopt_torch" / rel).exists(), rel
+    ours = modules + ["parallel/dryrun.py"]
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+                                               "cuopt_torch"}
+    bad = [(rel, m) for rel in ours
+           for m in _imported_modules(ROOT / "cuopt_torch" / rel)
+           if m and m.split(".")[0] not in allowed]
+    assert not bad, bad
+    names = [("cuopt_torch." + r[:-3].replace("/", ".")).removesuffix(
+        ".__init__") for r in ours]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        f"       {_FORBIDDEN + _NOT_ON_THE_CARD!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_client_and_service_front_load_no_torch():
     """The thin client and the service's front process solve nothing:
     importing them loads no torch (the workers do)."""
