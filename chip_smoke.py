@@ -166,12 +166,20 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_TIMED = 50
 DEGEN_STEPS = 400  # ten majors of 40 steps
 PROFILE_STEPS = 240  # six majors
-# PDLP's optimality tolerance before crossover (phase_crossover). On the
-# CPU, from ten float32 PDLP points of the 2k staircase each (different
-# starting points), the shared C++ crossover crashed on 8 at 1e-4 and on
-# none at 5e-5, 2e-5 or 1e-5, with 84 pivots from every 1e-5 point
-# (scripts/torch_crossover_crashes.py).
+# PDLP's optimality tolerance before the vertex check of phase_crossover.
+# On the CPU, from ten float32 PDLP points of the 2k staircase each
+# (different starting points), the shared C++ crossover failed to
+# factorize its crash basis within its 8 rank-repair attempts (and
+# crashed) on 8 at 1e-4 and on none at 5e-5, 2e-5 or 1e-5, with 84 pivots
+# from every 1e-5 point; the port's copy (kernels/build.py SIMPLEX_PATCHES,
+# 16 attempts) reaches the vertex from all ten at 1e-4, in 730 to 4,221
+# pivots (scripts/torch_crossover_crashes.py).
 CROSSOVER_TOL = 1e-5
+# LPs of tests/test_torch_simplex_exits.py's seeded generator, feasible
+# with a finite optimum, on which the shared simplex source says
+# INFEASIBLE (its exits at simplex.cpp:249 and :289 took a ray that holds
+# only with free columns parked at 0); the port's copy solves them
+EXIT_SEEDS = (549, 1606, 3066, 3192, 4323, 4916)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -735,20 +743,60 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     return total
 
 
+def exit_lp(seed):
+    """(the port's problem, HiGHS's objective) of the seed's LP from
+    tests/test_torch_simplex_exits.py's generator, with the same order
+    of random draws."""
+    from numpy import inf
+
+    from cuopt_torch.problem.mittelmann import _problem
+
+    g = np.random.default_rng(seed)
+    m = int(g.integers(3, 12))
+    n = int(g.integers(m, 3 * m))
+    dens = g.uniform(0.2, 0.6)
+    M = (g.random((m, n)) < dens) * np.round(g.normal(0, 2, (m, n)))
+    k = int(g.integers(0, n // 2 + 1))
+    for _ in range(k):
+        a, b = g.integers(0, n, 2)
+        M[:, b] = M[:, a] * g.choice([1, -1, 2])
+    r, cc = np.nonzero(M)
+    v = M[r, cc]
+    free = g.random(n) < 0.5
+    clo = np.where(free, -inf, 0.0)
+    cup = np.where(free, inf, g.choice([inf, 5.0], n))
+    x0 = np.where(free, g.normal(0, 3, n), g.uniform(0, 2, n))
+    ax = M @ x0
+    kind = g.integers(0, 3, m)
+    lo = np.where(kind == 0, ax,
+                  np.where(kind == 1, ax - g.uniform(0, 1, m), -inf))
+    up = np.where(kind == 0, ax,
+                  np.where(kind == 1, inf, ax + g.uniform(0, 1, m)))
+    c = np.round(g.normal(0, 1, n), 2)
+    prob = _problem(lo, up, clo, cup, c, r, cc, v)
+    return prob, highs_objective(prob)
+
+
 def phase_crossover(p2k, highs_2k):
     """PDLP in float32 on the block-band operator, then crossover to a
     vertex on the host: HiGHS's optimum within 1e-9, in fewer pivots than
     a cold simplex. Returns the kernels' launch counts.
 
-    PDLP solves to CROSSOVER_TOL for the vertex check. Then three float32
+    PDLP solves to CROSSOVER_TOL for that check. Then three float32
     points at the default 1e-4 (seeded starts 1-3, those of
     scripts/torch_crossover_crashes.py), from most of which the shared
-    C++ crossover crashes the process (its crash basis fails to
-    factorize and simplex.cpp:99 -> :885 reads x_B before it exists):
-    the port's copy of the simplex (kernels/build.py SIMPLEX_PATCHES)
-    must return, each solve OPTIMAL, crossed over or with the
-    simplex's status as crossover_status."""
+    C++ crossover's rank repair gives up after 8 attempts (and
+    simplex.cpp:99 -> :885 then reads x_B before it exists): the port's
+    copy of the simplex (kernels/build.py SIMPLEX_PATCHES), with up to 16
+    attempts, must reach the vertex from each, within 1e-9 of HiGHS.
+    Last, the EXIT_SEEDS LPs through solve_lp with the methods DualSimplex
+    and Concurrent: OPTIMAL, within 1e-6 (1 + |HiGHS|) of HiGHS's
+    optimum."""
+    from cuopt_torch import constants as C
     from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+    from cuopt_torch.lp.solve import solve_lp
     from cuopt_torch.utils.timer import Timer
 
     name = "crossover staircase-2k"
@@ -778,16 +826,43 @@ def phase_crossover(p2k, highs_2k):
         sol, info, got = _solve(f"{name} at 1e-4, start {seed}", p2k, s,
                                 ("row_pass_atomic",))
         launches.update(got)
+        obj = sol.get_primal_objective()
+        rel = abs(obj - highs_2k) / abs(highs_2k)
         log(f"[crossover] {name} at 1e-4, start {seed}: "
             f"{sol.get_termination_reason()}, "
-            f"{info.get('solved_by', 'pdlp')}, crossover "
-            f"{'reached a vertex' if 'crossover_iterations' in info else 'failed with status ' + str(info.get('crossover_status'))}"
-            f", objective {sol.get_primal_objective():.9f}")
+            f"{info.get('solved_by', 'pdlp')}, {info['iterations']} PDLP "
+            f"steps, {info.get('crossover_iterations')} crossover pivots "
+            f"against {cold['iterations']} for a cold simplex, crossover "
+            f"status {info.get('crossover_status', 'none')}, objective "
+            f"{obj:.12f} (rel err {rel:.2e}), wall {info['wall_s']:.3f} s")
         require(sol.get_termination_reason() == "Optimal",
                 f"{name} at 1e-4, start {seed}: status")
-        require(info.get("solved_by") == "pdlp+crossover" or
-                "crossover_status" in info,
-                f"{name} at 1e-4, start {seed}: no crossover outcome")
+        require(info.get("solved_by") == "pdlp+crossover",
+                f"{name} at 1e-4, start {seed}: no vertex (crossover "
+                f"status {info.get('crossover_status')})")
+        require(rel <= 1e-9, f"{name} at 1e-4, start {seed}: objective "
+                f"{obj} vs HiGHS {highs_2k}")
+    for seed in EXIT_SEEDS:
+        prob, want = exit_lp(seed)
+        for method in (C.CUOPT_METHOD_DUAL_SIMPLEX,
+                       C.CUOPT_METHOD_CONCURRENT):
+            s = PDLPSolverSettings()
+            s.log_to_console = False
+            s.method = method
+            pf.reset_counts()
+            sol = solve_lp(prob, s)
+            launches.update({k.name: k.launches for k in pf.KERNELS})
+            info = sol.get_additional_termination_information()
+            obj = sol.get_primal_objective()
+            label = f"exit seed {seed}, method {method}"
+            log(f"[crossover] {label}: {sol.get_termination_reason()}, "
+                f"solved by {info.get('solved_by')}, objective {obj:.12f} "
+                f"(HiGHS {want:.12f})")
+            require(sol.get_termination_reason() == "Optimal",
+                    f"{label}: status {sol.get_termination_reason()}")
+            require(abs(obj - want) <= 1e-6 * (1 + abs(want)),
+                    f"{label}: objective {obj} vs HiGHS {want}")
+            _no_simplex_thread_left(label)
     return dict(launches)
 
 

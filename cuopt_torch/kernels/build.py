@@ -12,7 +12,9 @@ unchanged one is loaded as it is:
     cuopt_tpu, which builds them into libraries of its own), compiled by
     g++ under cuopt_tpu's flags (`Builder.simplex_library()`,
     `Builder.mps_library()`; see HOST_FLAGS); the simplex from a copy
-    with its exits before x_B exists repaired (SIMPLEX_PATCHES);
+    with its exits before x_B exists, its infeasibility and shortcut
+    optimality claims and its rank repair's attempt count repaired
+    (SIMPLEX_PATCHES);
   - the C ABI, cpp/c_api/cuopt_c.c (`Builder.capi_library()`), built
     from a copy that imports cuopt_torch.c_api_embed where the source
     names cuopt_tpu's bridge (and with one argument format repaired, see
@@ -88,6 +90,87 @@ SIMPLEX_PATCHES = (
      "    return status;\n"
      "  }\n\n"
      "  int Finish(int status, int iter, std::vector<double>* x_out,\n", 1),
+    # Rank repair: Refactorize (:676-725) makes 8 attempts, each a
+    # factorization followed, if it fails, by a repair that swaps the
+    # dependent columns for slacks; the 8th repair's basis is never
+    # factorized. From a crossover's crash basis (the 2k staircase's
+    # float32 start 1 at 1e-4) the repairs swap 6, 6, 3, 2, 2, 2, 2 and 2
+    # columns, and Solve gives up at :99 one factorization short. Every
+    # such basis met so far (40 float32 points of four staircases)
+    # factorizes at the 9th or 10th attempt; the port's copy allows 16.
+    # The first 8 are the source's, so a basis that factorizes within them
+    # is repaired as it was.
+    ("    for (int attempt = 0; attempt < 8; ++attempt) {\n",
+     "    for (int attempt = 0; attempt < 16; ++attempt) {\n", 1),
+    # The two INFEASIBLE exits (:249 no entering candidate, :289 every
+    # candidate bound-flips) take the row's ray as a certificate, but a
+    # free column parked fixed at 0 (fake_bound_ 2, InitBasis :622-645 and
+    # Refactorize :712-716) has no such bounds in the LP: the ray holds
+    # only with them in place, and feasible LPs came back INFEASIBLE.
+    # ReleaseParkedFree (:653) ran only on the optimality path (:199).
+    # Before either exit the port's copy restores the true costs and
+    # releases every parked column whatever its reduced cost
+    # (ReviseInfeasibleClaim); if that changed anything the loop goes on.
+    ("        if (std::getenv(\"DS_DEBUG\"))\n"
+     "          std::fprintf(stderr, \"[ds] iter %d infeasible:",
+     "        if (ReviseInfeasibleClaim()) continue;\n"
+     "        if (std::getenv(\"DS_DEBUG\"))\n"
+     "          std::fprintf(stderr, \"[ds] iter %d infeasible:", 2),
+    ("  bool ReleaseParkedFree() {\n",
+     "  bool ReleaseParkedFree(double min_dj = 1e-7) {\n", 1),
+    ("      if (std::fabs(dj_[j]) <= 1e-7) continue;\n",
+     "      if (std::fabs(dj_[j]) <= min_dj) continue;\n", 1),
+    ("  bool Refactorize() {\n",
+     "  // cuopt_torch's copy: before an infeasibility claim, the true\n"
+     "  // costs and every parked free column back (released with\n"
+     "  // ReleaseParkedFree's big bound, whatever its reduced cost; each\n"
+     "  // release moves fake_bound_ from 2 to 1, so the claims end). True\n"
+     "  // when the state changed and the claim must be made again.\n"
+     "  bool ReviseInfeasibleClaim() {\n"
+     "    bool changed = false;\n"
+     "    if (perturbed_) {\n"
+     "      perturbed_ = false;\n"
+     "      RestoreCosts();\n"
+     "      ComputeDualsAndPrices();\n"
+     "      RepairDualFeasibility();\n"
+     "      changed = true;\n"
+     "    }\n"
+     "    if (ReleaseParkedFree(-1.0)) {\n"
+     "      ComputeXb();\n"
+     "      changed = true;\n"
+     "    }\n"
+     "    return changed;\n"
+     "  }\n\n"
+     "  bool Refactorize() {\n", 1),
+    # The shortcut (:245) that takes a violation under 1e-6 with no
+    # entering candidate as optimal skipped the optimality claim's steps
+    # (:184-211): it could answer under shifted costs (RepairDualFeasibility
+    # shifts by the full dual infeasibility) with free columns still parked.
+    # The port's copy takes those steps there too; the fresh factorization
+    # they start from is the one just above it (:238-244).
+    ("        if (violation < 1e-6) { status = kOptimal; break; }\n",
+     "        if (violation < 1e-6) {\n"
+     "          // cuopt_torch's copy: the optimality claim of the r < 0\n"
+     "          // path, on the fresh factorization made just above\n"
+     "          if (perturbed_) {\n"
+     "            perturbed_ = false;\n"
+     "            RestoreCosts();\n"
+     "            ComputeDualsAndPrices();\n"
+     "            RepairDualFeasibility();\n"
+     "            continue;\n"
+     "          }\n"
+     "          if (ReleaseParkedFree()) {\n"
+     "            ComputeXb();\n"
+     "            continue;\n"
+     "          }\n"
+     "          status = kOptimal;\n"
+     "          for (int i = 0; i < m_; ++i)\n"
+     "            if (!std::isfinite(xb_[i])) {\n"
+     "              status = kNumerical;\n"
+     "              break;\n"
+     "            }\n"
+     "          break;\n"
+     "        }\n", 1),
 )
 CHECK_SOURCE = CSRC / "c_api_check.c"
 # cuopt_tpu's flags, plus -fno-gnu-unique: the simplex options are C++

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""How often the shared C++ crossover crashes, by PDLP tolerance.
+"""How often crossover from a float32 PDLP point reaches the vertex, by
+PDLP tolerance.
 
     python scripts/torch_crossover_crashes.py            # 10 points per tolerance
     python scripts/torch_crossover_crashes.py --tols 1e-4 --samples 20
@@ -10,9 +11,14 @@ band=256) by PDLP in float32 on the block-band operator, on the CPU, from
 initial primal solution, so that each run converges to another point of
 the tolerance ball), then crosses over to a vertex with the native dual
 simplex. Each sample runs in a process of its own, because a crash kills
-it: the crossover's crash basis can fail to factorize, and then
-cpp/dual_simplex/simplex.cpp reads x_B before it exists (Solve :99 ->
-Finish :885). Prints one line per sample and a count per tolerance.
+it: the shared source (cpp/dual_simplex/simplex.cpp) reads x_B before it
+exists when the crossover's crash basis fails to factorize (Solve :99 ->
+Finish :885); the port's copy returns NUMERICAL there, and its rank
+repair makes up to 16 attempts where the source makes 8
+(kernels/build.py SIMPLEX_PATCHES). Prints one line per
+sample (its crossover pivots, or its failure) and, per tolerance, how
+many samples reached the vertex, failed (a crossover status or an error
+exit), or crashed.
 """
 
 from __future__ import annotations
@@ -46,9 +52,15 @@ def one(n: int, tol: float, seed: int) -> None:
     s.set_optimality_tolerance(tol)
     s.initial_primal_solution = np.random.default_rng(seed).uniform(
         0.0, 1e-3, n)
-    info = solve_lp(prob, s, device="cpu").get_additional_termination_information()
-    print(f"{info['solved_by']} {info['iterations']} PDLP steps "
-          f"{info.get('crossover_iterations')} crossover pivots")
+    sol = solve_lp(prob, s, device="cpu")
+    info = sol.get_additional_termination_information()
+    if info.get("solved_by") == "pdlp+crossover":
+        print(f"pdlp+crossover {info['iterations']} PDLP steps "
+              f"{info['crossover_iterations']} crossover pivots, objective "
+              f"{sol.get_primal_objective()!r}")
+    else:
+        print(f"no vertex: crossover status {info.get('crossover_status')}, "
+              f"{info['iterations']} PDLP steps")
 
 
 def main() -> int:
@@ -65,21 +77,27 @@ def main() -> int:
         return 0
     env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
     for tol in a.tols:
-        crashed = 0
+        vertices = failed = crashed = 0
         for seed in range(1, a.samples + 1):
             r = subprocess.run(
                 [sys.executable, __file__, "--n", str(a.n), "--one",
                  str(tol), str(seed)], capture_output=True, text=True,
                 env=env, timeout=600)
-            if r.returncode == -signal.SIGSEGV:
+            if r.returncode < 0:
                 crashed += 1
-                out = "crashed (SIGSEGV)"
+                out = f"crashed ({signal.Signals(-r.returncode).name})"
             elif r.returncode != 0:
+                failed += 1
                 out = f"failed, exit {r.returncode}: {r.stderr[-300:]}"
             else:
                 out = r.stdout.strip().splitlines()[-1]
+                if out.startswith("pdlp+crossover "):
+                    vertices += 1
+                else:
+                    failed += 1
             print(f"tol {tol:g} seed {seed}: {out}", flush=True)
-        print(f"tol {tol:g}: {crashed} of {a.samples} crossovers crashed",
+        print(f"tol {tol:g}: {vertices} of {a.samples} crossovers reached "
+              f"the vertex, {failed} failed, {crashed} crashed",
               flush=True)
     return 0
 

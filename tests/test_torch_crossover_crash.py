@@ -1,13 +1,15 @@
-"""Crossover from a float32 PDLP point whose crash basis does not
-factorize: the shared simplex source (cpp/dual_simplex/simplex.cpp) then
-returns from Solve before x_B exists and reads it (:99 -> Finish :885),
-which kills the process. The port builds a copy with those exits
-repaired (cuopt_torch/kernels/build.py SIMPLEX_PATCHES), so its
-crossover returns a status and keeps the PDLP answer.
+"""Crossover from a float32 PDLP point whose crash basis fails to
+factorize within the shared simplex source's 8 rank-repair attempts
+(cpp/dual_simplex/simplex.cpp Refactorize :676-725): Solve then returns
+before x_B exists and reads it (:99 -> Finish :885), which kills the
+process. The port builds a copy of simplex.cpp
+(cuopt_torch/kernels/build.py SIMPLEX_PATCHES) whose rank repair makes
+up to 16 attempts, so its crossover reaches the vertex; and whose exits
+before x_B exists return NUMERICAL with zero vectors, which a build with
+the source's 8 attempts still reaches.
 
 The point is the first of scripts/torch_crossover_crashes.py's samples:
-the 2k staircase, float32, tolerance 1e-4, seeded start 1.
-"""
+the 2k staircase, float32, tolerance 1e-4, seeded start 1."""
 
 import os
 import signal
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_simplex_exits as exits
 from cuopt_torch import constants as C
 from cuopt_torch.dual_simplex.crossover import crossover
 from cuopt_torch.kernels import build
@@ -65,9 +68,11 @@ _CROSS = textwrap.dedent("""
         from cuopt_tpu.lp.settings import PDLPSolverSettings
         from cuopt_tpu.problem.synthetic import generate_lp
         from cuopt_tpu.utils.timer import Timer
-    else:  # the port's library built from the unpatched source
+    else:  # the port's library, built without some of its patches
         from cuopt_torch.kernels import build
-        build.SIMPLEX_PATCHES = ()
+        build.SIMPLEX_PATCHES = () if sys.argv[1] == "unpatched" else \
+            tuple(p for p in build.SIMPLEX_PATCHES
+                  if not p[0].lstrip().startswith("for (int attempt"))
         build.BUILD_DIR = build.Path(sys.argv[3])
         from cuopt_torch.dual_simplex.bindings import solve_lp_simplex
         from cuopt_torch.lp.settings import PDLPSolverSettings
@@ -94,21 +99,36 @@ def test_the_shared_source_crashes(point, library, tmp_path):
                                              r.stderr[-2000:])
 
 
-def test_the_ports_crossover_returns_a_status(point):
-    """In this process: the simplex reports NUMERICAL_ERROR, and crossover
-    keeps the PDLP point and says that it failed."""
+def test_with_eight_attempts_the_port_returns_numerical(point, tmp_path):
+    """The port built with SIMPLEX_PATCHES but the source's 8 rank-repair
+    attempts: the basis still fails, and the simplex returns
+    NUMERICAL_ERROR instead of crashing (FinishUnfactored)."""
+    _, _, path = point
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    r = subprocess.run([sys.executable, "-c", _CROSS, "eight-attempts",
+                        str(path), str(tmp_path)], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, (r.returncode, r.stderr[-2000:])
+    assert r.stdout.split()[-2:] == [
+        "status", str(C.CUOPT_TERIMINATION_STATUS_NUMERICAL_ERROR)]
+
+
+def test_the_ports_crossover_reaches_the_vertex(point):
+    """In this process the crossover reaches HiGHS's optimum,
+    118.88362819361583, within 1e-9: in the simplex, and end to end as
+    `--crossover true` reaches it."""
     prob, raw, _ = point
     assert build.SIMPLEX_PATCHES
+    status, highs = exits.highs(prob)
+    assert status == C.CUOPT_TERIMINATION_STATUS_OPTIMAL
+    assert abs(highs - 118.88362819361583) <= 1e-9 * highs
     got = crossover(prob, dict(raw), _settings(), Timer(60))
-    assert got["crossover_status"] == \
-        C.CUOPT_TERIMINATION_STATUS_NUMERICAL_ERROR
-    assert "solved_by" not in got and "crossover_iterations" not in got
-    assert got["primal_solution"] is raw["primal_solution"]
-    # and end to end, as `--crossover true` reaches it
+    assert got["solved_by"] == "pdlp+crossover"
+    assert "crossover_status" not in got
+    assert abs(got["primal_objective"] - highs) <= 1e-9 * abs(highs)
     sol = solve_lp(prob, _settings(crossover_flag=True), device="cpu")
     assert sol.get_termination_reason() == "Optimal"
     info = sol.get_additional_termination_information()
-    assert info["crossover_status"] == \
-        C.CUOPT_TERIMINATION_STATUS_NUMERICAL_ERROR
-    np.testing.assert_allclose(sol.get_primal_objective(),
-                               raw["primal_objective"], rtol=1e-12)
+    assert info["solved_by"] == "pdlp+crossover"
+    assert info["crossover_iterations"] == got["crossover_iterations"]
+    assert abs(sol.get_primal_objective() - highs) <= 1e-9 * abs(highs)
