@@ -126,7 +126,20 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      member served once, feasible on the host and no dearer than the
      construction; hierarchical_psum of 2^20 values on 2 x 2 shards
      within 1e-6 of the flat sum. No sharded run launches a row-pass
-     kernel.
+     kernel;
+  20. parity paths: GHC_200_1 as 100 pickup-delivery pairs (windows [0,
+     the depot's close]) solved for 10 s, re-routed at half its largest
+     arrival stamp with 10 seeded new pairs (the model's orders exactly
+     the unfinished and the new, each dummy pickup pinned to its
+     carrier) and solved again for 10 s: status 0, every order once,
+     pairs on one vehicle pickup first, pins, time windows and each
+     route's demand rechecked on the host (the load carried between
+     stops printed); GHC_200_1 weighted [COST, TRAVEL_TIME], its reported
+     values within 1e-9 of the host's from its routes; GHC_200_1 with 20
+     seeded precedence chains: every link among served orders kept, the
+     orders left out exactly those reported; the twelve binaries built
+     field by field without names, a column fixed by its bounds, by
+     solve_mip at the named problem's optimum. No row-pass launch.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -2660,6 +2673,317 @@ def phase_multi_device(p50, batch_sols):
     return launches
 
 
+# ----------------------------------------------------------- phase 20
+REROUTE_LIMIT, OBJ_LIMIT = 10, 6  # seconds of each routing Solve
+NEW_PAIRS, CHAINS = 10, 20
+
+
+def gh200_pd():
+    """GHC_200_1 (synth_gh_instance(200, "C", 1)) as pickup-delivery
+    pairs: order i with i + 100, the delivery's demand minus the
+    pickup's (gh60's "pd" variant), every order's window [0, the depot's
+    close], the instance's service times (tests/torch_routing_instances.py
+    pd_wide)."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+
+    inst = synth_gh_instance(200, "C", 1)
+    d = inst.demand.copy()
+    d[101:] = -d[1:101]
+    inst.demand = d
+    inst.tw_early = np.zeros_like(inst.tw_early)
+    inst.tw_late = np.full_like(inst.tw_late, inst.tw_late[0])
+    dm = inst.to_data_model()
+    dm.set_pickup_delivery_pairs(np.arange(100), np.arange(100, 200))
+    return dm
+
+
+def _order_rows(table):
+    """{vehicle: [(order, arrival), ...] in arrival order} of a route
+    table's order rows."""
+    kind = np.asarray(table["type"], object)
+    rows = np.flatnonzero((kind == "Pickup") | (kind == "Delivery"))
+    out = {}
+    for i in rows[np.argsort(table["arrival_stamp"][rows], kind="stable")]:
+        out.setdefault(int(table["truck_id"][i]), []).append(
+            (int(table["route"][i]), float(table["arrival_stamp"][i])))
+    return out
+
+
+def host_model_check(dm, table):
+    """Recheck a solve of the routing DataModel `dm` on the host in
+    float64, from dm's own arrays: (orders served not exactly once, max
+    time-window violation, max capacity excess of a route's demand, max
+    excess of the load carried after a stop, pairs broken (split over
+    vehicles or delivery first), orders off their pinned vehicle, COST
+    and TRAVEL_TIME of the routes). Both packages hold a route's summed
+    demand to the capacity (internal.py route_feasible), which for
+    pickup-delivery pairs is the net load, not the load carried between
+    them (ROADMAP Queue 3): the smoke requires the first and prints the
+    second. Each vehicle leaves its start at its
+    window's opening, waits for an order's window to open and returns to
+    its return location."""
+    loc = np.asarray(dm.order_locations)
+    early, late = (np.asarray(a, float) for a in dm.order_tw)
+    svc = dm.order_service_times.get(-1, np.zeros(len(loc)))
+    (demand, cap), = dm.capacity_dimensions.values()
+    T = next(iter((dm.transit_time_matrices or dm.cost_matrices).values()))
+    C = next(iter(dm.cost_matrices.values()))
+    F = dm.n_fleet
+    v_early, v_late = (np.zeros(F), np.full(F, np.inf)) \
+        if dm.vehicle_tw is None else \
+        (np.asarray(a, float) for a in dm.vehicle_tw)
+    start = np.zeros(F, int) if dm.vehicle_start is None \
+        else dm.vehicle_start
+    ret = np.zeros(F, int) if dm.vehicle_return is None \
+        else dm.vehicle_return
+    routes = _order_rows(table)
+    seen = np.zeros(len(loc), int)
+    tw_viol = cap_viol = carried = cost = travel = 0.0
+    where = {}
+    for v, rows in routes.items():
+        t, at, load = v_early[v], int(start[v]), 0.0
+        for k, (o, _) in enumerate(rows):
+            seen[o] += 1
+            where[o] = (v, k)
+            cost += C[at, loc[o]]
+            t = max(t + T[at, loc[o]], early[o])
+            tw_viol = max(tw_viol, t - late[o])
+            t += svc[o]
+            at = int(loc[o])
+            load += demand[o]
+            carried = max(carried, load - cap[v])
+        cap_viol = max(cap_viol, load - cap[v])
+        back = int(ret[v])
+        cost += C[at, back]
+        t += T[at, back]
+        tw_viol = max(tw_viol, t - v_late[v])
+        travel += t - v_early[v]
+    broken = 0
+    if dm.pickup_indices is not None:
+        for p, d in zip(dm.pickup_indices, dm.delivery_indices):
+            (vp, kp), (vd, kd) = where.get(p, (-1, 0)), where.get(d, (-2, 0))
+            broken += vp != vd or kp >= kd
+    off = sum(where.get(o, (-1,))[0] not in set(map(int, vs))
+              for o, vs in dm.order_vehicle_match.items())
+    return dict(not_once=int(np.sum(seen != 1)), tw_viol=tw_viol,
+                served=set(np.flatnonzero(seen).tolist()),
+                cap_viol=cap_viol, carried=carried, broken_pairs=broken,
+                off_pin=off,
+                cost=cost, travel=travel)
+
+
+def _check_routes(name, dm, sol, wall, unserved_ok=False):
+    """Status 0 and the host recheck of host_model_check. With
+    `unserved_ok`, status 1 passes too where the orders left out are
+    exactly those the solve reports undeliverable."""
+    chk = host_model_check(dm, sol.get_route())
+    unserved = sorted(map(int, sol.get_infeasible_orders()))
+    if unserved_ok and sol.get_status() == 1:
+        missing = [o for o in range(dm.get_num_orders())
+                   if o not in chk["served"]]
+        log(f"[phase20] {name}: {len(unserved)} orders reported "
+            f"undeliverable ({sol.get_message()})")
+        require(missing == unserved,
+                f"{name}: orders left out are not those reported")
+        chk["not_once"] -= len(unserved)
+    else:
+        require(sol.get_status() == 0, f"{name}: status "
+                f"{sol.get_status()} ({sol.get_message()})")
+    log(f"[phase20] {name}: {sol.get_vehicle_count()} vehicles, cost "
+        f"{chk['cost']:.2f}, wall {wall:.2f} s; host float64 recheck: "
+        f"{chk['not_once']} orders not served once, {chk['broken_pairs']} "
+        f"pairs broken, {chk['off_pin']} orders off their vehicle, max "
+        f"time-window violation {chk['tw_viol']:.3e}, max capacity excess "
+        f"{chk['cap_viol']:.3e} (of the load carried after a stop: "
+        f"{chk['carried']:.3e})")
+    require(chk["not_once"] == 0, f"{name}: an order not served once")
+    require(chk["broken_pairs"] == 0,
+            f"{name}: a pair split or delivered before its pickup")
+    require(chk["off_pin"] == 0, f"{name}: an order off its vehicle")
+    require(chk["tw_viol"] <= 1e-6 and chk["cap_viol"] <= 1e-9,
+            f"{name}: a route breaks its time windows or capacity")
+    return chk
+
+
+def _routing_settings(limit):
+    from cuopt_torch.routing import SolverSettings
+
+    s = SolverSettings()
+    s.time_limit = limit
+    s.seed = 0
+    return s
+
+
+def phase_reroute(device="cuda"):
+    """GHC_200_1 as pickup-delivery pairs solved for REROUTE_LIMIT s, then
+    re-routed at half its largest arrival stamp with NEW_PAIRS seeded new
+    pairs and the new model solved for REROUTE_LIMIT s. Each order of the
+    re-routed model is what the first plan left: the pairs not finished
+    by then, a dummy pickup where only the pickup was made, and the new
+    pairs."""
+    from cuopt_torch.routing import Solve, construct_rerouting_model
+
+    dm = gh200_pd()
+    t0 = time.perf_counter()
+    sol = Solve(dm, _routing_settings(REROUTE_LIMIT), device=device)
+    _check_routes("GHC_200_1-pd", dm, sol, time.perf_counter() - t0)
+    table = sol.get_route()
+    t_mid = 0.5 * float(table["arrival_stamp"].max())
+    rng = np.random.default_rng(20)
+    close = float(dm.vehicle_tw[1][0])
+    size = rng.integers(1, 41, NEW_PAIRS).astype(float)
+    new = dict(
+        order_locations=rng.integers(1, 201, 2 * NEW_PAIRS).tolist(),
+        earliest_time=[t_mid] * (2 * NEW_PAIRS),
+        latest_time=[close] * (2 * NEW_PAIRS),
+        service_time=[10.0] * (2 * NEW_PAIRS),
+        pickup_indices=list(range(NEW_PAIRS)),
+        delivery_indices=list(range(NEW_PAIRS, 2 * NEW_PAIRS)),
+        demand=np.concatenate([size, -size]).tolist())
+    t0 = time.perf_counter()
+    new_dm, order_map = construct_rerouting_model(dm, table, t_mid, new)
+    build = time.perf_counter() - t0
+    # what the first plan leaves at t_mid, from its table alone
+    done = {o for rows in _order_rows(table).values()
+            for o, t in rows if t <= t_mid}
+    carrier = {o: v for v, rows in _order_rows(table).items()
+               for o, _ in rows}
+    want = [("new", i) for i in range(2 * NEW_PAIRS)]
+    for p, d in zip(range(100), range(100, 200)):
+        if p in done and d not in done:
+            want += [("dummy", p), d]
+        elif p not in done:
+            want += [p, d]
+    got = list(order_map.values())
+    partial = sum(isinstance(x, tuple) and x[0] == "dummy" for x in got)
+    log(f"[phase20] re-route at {t_mid:.2f}: {len(got)} orders ({partial} "
+        f"dummy pickups, {2 * NEW_PAIRS} new), model built in "
+        f"{1e3 * build:.1f} ms")
+    require(sorted(map(str, got)) == sorted(map(str, want)),
+            "re-route: the model's orders are not the unfinished and new")
+    for k, x in order_map.items():
+        if isinstance(x, tuple) and x[0] == "dummy":
+            require(new_dm.order_vehicle_match[k].tolist() ==
+                    [carrier[x[1]]],
+                    f"re-route: dummy pickup of {x[1]} not pinned to its "
+                    f"carrier")
+    t0 = time.perf_counter()
+    sol2 = Solve(new_dm, _routing_settings(REROUTE_LIMIT), device=device)
+    _check_routes("GHC_200_1-pd re-routed", new_dm, sol2,
+                  time.perf_counter() - t0)
+
+
+def phase_objectives(device="cuda"):
+    """GHC_200_1 solved under the weights [COST, TRAVEL_TIME] = [1, 0.5]:
+    the reported COST and TRAVEL_TIME equal the host's recomputation from
+    the routes within 1e-9, the total their weighted sum. Then with
+    CHAINS seeded precedence chains of three orders (each chain ordered by
+    the orders' windows): every link kept on the routes' arrival stamps."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+    from cuopt_torch.routing import Objective, Solve
+
+    inst = synth_gh_instance(200, "C", 1)
+    dm = inst.to_data_model()
+    dm.set_objective_function([Objective.COST, Objective.TRAVEL_TIME],
+                              [1.0, 0.5])
+    t0 = time.perf_counter()
+    sol = Solve(dm, _routing_settings(OBJ_LIMIT), device=device)
+    chk = _check_routes("GHC_200_1 [COST, TRAVEL_TIME]", dm, sol,
+                        time.perf_counter() - t0)
+    vals = sol.get_objective_values()
+    rel = [abs(vals[Objective.COST] - chk["cost"]) / chk["cost"],
+           abs(vals[Objective.TRAVEL_TIME] - chk["travel"]) / chk["travel"]]
+    total = chk["cost"] + 0.5 * chk["travel"]
+    rel.append(abs(sol.get_total_objective() - total) / total)
+    log(f"[phase20] objectives: COST {vals[Objective.COST]:.6f} (host "
+        f"{chk['cost']:.6f}), TRAVEL_TIME {vals[Objective.TRAVEL_TIME]:.6f} "
+        f"(host {chk['travel']:.6f}), total {sol.get_total_objective():.6f}"
+        f" (host {total:.6f}); largest relative gap {max(rel):.2e}")
+    require(max(rel) <= 1e-9, "objectives: reported values off the routes")
+
+    dm = inst.to_data_model()
+    rng = np.random.default_rng(21)
+    picked = rng.choice(200, (CHAINS, 3), replace=False)
+    links = []
+    for chain in picked:
+        a, b, c = sorted(chain.tolist(),
+                         key=lambda o: (inst.tw_early[o + 1], o))
+        dm.add_order_precedence(b, [a])
+        dm.add_order_precedence(c, [b])
+        links += [(a, b), (b, c)]
+    t0 = time.perf_counter()
+    sol = Solve(dm, _routing_settings(OBJ_LIMIT), device=device)
+    # both packages leave some orders of these chains unserved (ROADMAP
+    # Queue 3): the solve must say which, and keep every link it serves
+    _check_routes(f"GHC_200_1 + {CHAINS} precedence chains", dm, sol,
+                  time.perf_counter() - t0, unserved_ok=True)
+    arr = {o: t for rows in _order_rows(sol.get_route()).values()
+           for o, t in rows}
+    late = [(a, b) for a, b in links if b in arr and
+            (a not in arr or arr[b] < arr[a] - 1e-9)]
+    log(f"[phase20] precedence: {len(links)} links, "
+        f"{sum(a in arr and b in arr for a, b in links)} with both orders "
+        f"served, {len(late)} broken (a successor served before its "
+        f"predecessor, or without it)")
+    require(not late, f"precedence: links {late[:5]} broken")
+
+
+def unnamed_twelve():
+    """Phase 12's twelve binaries, column 3 fixed to 1 by its bounds, as
+    (named from_dense problem, the same built field by field without
+    names)."""
+    from cuopt_torch.problem.data_model import OptimizationProblem
+
+    p = twelve_binaries()
+    p.variable_lower_bounds[3] = p.variable_upper_bounds[3] = 1.0
+    u = OptimizationProblem(**{k: np.copy(v) for k, v in dict(
+        offsets=p.offsets, indices=p.indices, values=p.values,
+        objective_coefficients=p.objective_coefficients,
+        constraint_lower_bounds=p.constraint_lower_bounds,
+        constraint_upper_bounds=p.constraint_upper_bounds,
+        row_types=p.row_types, rhs=p.rhs,
+        variable_lower_bounds=p.variable_lower_bounds,
+        variable_upper_bounds=p.variable_upper_bounds,
+        variable_types=p.variable_types).items()})
+    return p, u
+
+
+def phase_unnamed_mip(device="cuda"):
+    """solve_mip on the unnamed twelve binaries with a fixed column (its
+    presolve drops that column): the named problem's status, objective
+    and point."""
+    from cuopt_torch import solve_mip
+
+    p, u = unnamed_twelve()
+    require(u.variable_names == [], "unnamed MIP: it has names")
+    best = brute_force_min(p)
+    a = solve_mip(p, _mip_settings(60.0), device=device)
+    t0 = time.perf_counter()
+    b = solve_mip(u, _mip_settings(60.0), device=device)
+    wall = time.perf_counter() - t0
+    log(f"[phase20] unnamed twelve binaries, column 3 fixed: "
+        f"{b.get_termination_reason()}, objective "
+        f"{b.get_primal_objective()} (named {a.get_primal_objective()}, "
+        f"brute force {best}), wall {wall:.3f} s")
+    require(a.get_termination_reason() == "Optimal" and
+            b.get_termination_reason() == "Optimal",
+            "unnamed MIP: not OPTIMAL")
+    require(b.get_primal_objective() == a.get_primal_objective() == best,
+            "unnamed MIP: objective")
+    require(np.array_equal(b.get_primal_solution(),
+                           a.get_primal_solution()), "unnamed MIP: point")
+
+
+def phase_parity(device="cuda"):
+    """Phase 20: re-routing, objectives and precedence on GHC_200_1, and an
+    unnamed MIP, on the card."""
+    t0 = time.perf_counter()
+    phase_reroute(device)
+    phase_objectives(device)
+    phase_unnamed_mip(device)
+    log(f"[phase20] wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2790,6 +3114,14 @@ def main() -> int:
     # reference solve launches row_pass_atomic, the sharded runs none
     total.update(phase_multi_device(p50, batch_sols))
     log(f"[multi] done at {time.perf_counter() - t_start:.1f} s")
+
+    # phase 20: routing and float64 MIP work, no row-pass launch
+    before = {k.name: k.launches for k in pf.KERNELS}
+    phase_parity()
+    log(f"[phase20] done at {time.perf_counter() - t_start:.1f} s")
+    require("pandas" not in sys.modules, "phase 20 loaded pandas")
+    require(all(k.launches == before[k.name] for k in pf.KERNELS),
+            "phase 20 launched a row-pass kernel")
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",

@@ -354,9 +354,10 @@ def eliminate_fixed(prob, lv, uv, int_tol=1e-6):
         variable_lower_bounds=lv[keep_cols],
         variable_upper_bounds=uv[keep_cols],
         variable_types=prob.variable_types[keep_cols],
+        # a problem built field by field has no names ([]): keep none
         variable_names=[prob.variable_names[int(j)]
                         for j in keep_cols]
-        if prob.variable_names is not None else None,
+        if prob.variable_names else [],
         row_names=prob.row_names,
     )
     return TrivialReduction(

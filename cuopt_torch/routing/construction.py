@@ -30,9 +30,17 @@ def cheapest_insertion(
     rng = rng or np.random.default_rng(0)
     routes: dict[int, list[int]] = {v: [] for v in range(prob.n_fleet)}
     # order processing sequence: precedence depth first (predecessors
-    # before successors), then earliest time window, then demand
+    # before successors), then the orders with the fewest vehicles
+    # allowed, then earliest time window, then demand. cuopt_tpu has no
+    # allowed-vehicle key: an order pinned to a vehicle that cheaper
+    # orders had filled first stayed unassigned (a re-routed model's
+    # dummy pickups). Without pins both take the same sequence.
+    n_allowed = np.full(prob.n_serve, prob.n_fleet) \
+        if prob.allowed_vehicles is None \
+        else prob.allowed_vehicles.sum(axis=1)
     keys = np.lexsort((
-        -prob.demand.sum(axis=0), prob.tw_early, precedence_depth(prob),
+        -prob.demand.sum(axis=0), prob.tw_early, n_allowed,
+        precedence_depth(prob),
     ))
     pending = [int(o) for o in keys]
     handled = set()

@@ -70,19 +70,28 @@ def construct_rerouting_model(
     delivery_of = dict(zip(picks, drops))
     pickup_of = dict(zip(drops, picks))
 
-    # replay the optimized route up to reroute_from_time
-    df = optimized_route
+    # replay the optimized route up to reroute_from_time, on the table's
+    # columns: any object with `columns` and column access by name (the
+    # port's RouteTable, or a pandas DataFrame)
+    route = np.asarray(optimized_route["route"]).astype(np.int64)
+    stamp = np.asarray(optimized_route["arrival_stamp"], np.float64)
+    truck = np.asarray(optimized_route["truck_id"]).astype(np.int64)
+    where = np.asarray(optimized_route["location"]).astype(np.int64)
+    is_order = np.ones(len(route), bool)
+    if "type" in optimized_route.columns:
+        kind = np.asarray(optimized_route["type"], object)
+        is_order = (kind != "Depot") & (kind != "Break")
     done = set()  # orders already visited by reroute time
     veh_pos = {}  # vehicle -> (location, free_time)
-    for v in sorted(set(df["truck_id"])):
-        sub = df[df["truck_id"] == v].sort_values("arrival_stamp")
-        loc = int(sub.iloc[0]["location"])
+    for v in np.unique(truck).tolist():
+        sub = np.flatnonzero(truck == v)
+        # stable: rows with equal stamps keep their route order
+        sub = sub[np.argsort(stamp[sub], kind="stable")]
+        loc = int(where[sub[0]])
         free = reroute_from_time
-        for _, row in sub.iterrows():
-            if "type" in df.columns and row["type"] in ("Depot", "Break"):
-                continue
-            o = int(row["route"])
-            t = float(row["arrival_stamp"])
+        for i in sub[is_order[sub]].tolist():
+            o = int(route[i])
+            t = float(stamp[i])
             fin = t + float(service[o])
             if t <= reroute_from_time:
                 # assumption 3: an order being serviced is finished first
@@ -107,7 +116,9 @@ def construct_rerouting_model(
         if p in done and d in done:
             continue  # fulfilled
         if p in done:  # partially fulfilled: dummy pickup on the vehicle
-            veh = int(df[df["route"] == p].iloc[0]["truck_id"])
+            # the vehicle that picked p up: Depot and Break rows carry
+            # route 0 too, so only order rows are searched
+            veh = int(truck[np.flatnonzero(is_order & (route == p))[0]])
             loc, free = veh_pos.get(veh, (0, reroute_from_time))
             pi = add(loc, reroute_from_time, max(float(late[d]), free),
                      0.0, float(demand[p]), ("dummy", p))

@@ -354,6 +354,7 @@ def _local_search(prob, lsp, routes, timer, max_rounds=10_000,
 
             if timer.expired():
                 break
+            kept = {v: list(r) for v, r in routes.items()}
             if grouped:
                 # cycle/HVRP tensors are all-pairs over the WHOLE fleet
                 # (O((F*L)^2)) — out of budget at large F
@@ -367,6 +368,9 @@ def _local_search(prob, lsp, routes, timer, max_rounds=10_000,
                 from cuopt_torch.routing.internal import precedence_ok
 
                 if not precedence_ok(prob, routes):
+                    # these moves do not check precedence: keep the routes
+                    # from before them (cuopt_tpu returns the broken ones)
+                    routes = kept
                     break
             if not improved:
                 break
@@ -443,10 +447,8 @@ def _enforce_precedence(prob, routes, unassigned, rng, max_rounds=10):
 
     if not prob.precedence:
         return routes, unassigned
-    unassigned = list(unassigned)
-    for round_no in range(max_rounds):
-        if precedence_ok(prob, routes):
-            return routes, unassigned
+
+    def pull_violators(routes):
         arr = order_arrival_times(prob, routes)
         violators = []
         for o, preds in prob.precedence:
@@ -457,18 +459,22 @@ def _enforce_precedence(prob, routes, unassigned, rng, max_rounds=10):
                         arr[int(p)] > arr[o] + 1e-9:
                     violators.append(o)
                     break
-        if not violators:
-            return routes, unassigned
         pulled = set(violators)
         if prob.pd_partner is not None:
             for o in violators:
                 pr = int(prob.pd_partner[o])
                 if pr >= 0:
                     pulled.add(pr)
-        routes = {
-            v: [o for o in r if o not in pulled]
-            for v, r in routes.items()
-        }
+        return {v: [o for o in r if o not in pulled]
+                for v, r in routes.items()}, pulled
+
+    unassigned = list(unassigned)
+    for round_no in range(max_rounds):
+        if precedence_ok(prob, routes):
+            return routes, unassigned
+        routes, pulled = pull_violators(routes)
+        if not pulled:
+            return routes, unassigned
         if round_no < max_rounds - 1:
             routes, left = greedy_reinsert(
                 prob, routes, sorted(pulled), rng
@@ -481,6 +487,12 @@ def _enforce_precedence(prob, routes, unassigned, rng, max_rounds=10):
             unassigned.extend(left)
         else:
             unassigned.extend(sorted(pulled))
+    # the last round pulls without reinserting, and a pulled order's
+    # served successors lose their predecessor: pull them as well until
+    # every link holds (cuopt_tpu returns them served)
+    while not precedence_ok(prob, routes):
+        routes, pulled = pull_violators(routes)
+        unassigned.extend(sorted(pulled))
     return routes, sorted(set(unassigned))
 
 

@@ -5,6 +5,8 @@ The port keeps its own copy of the numpy presolve, so on the same seeded
 MIPs both give equal arrays.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from cuopt_torch.problem.data_model import OptimizationProblem as TProb
 
 J = pytest.importorskip("cuopt_tpu.mip.presolve")
 from cuopt_tpu.problem.data_model import OptimizationProblem as JProb  # noqa: E402
+from torch_mip_instances import brute_force_min, twelve_binaries  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -90,6 +93,67 @@ def test_eliminate_fixed_equal(seed):
     assert np.array_equal(a.postsolve(xr), b.postsolve(xr))
     xf = rng.normal(size=tp.n_variables)
     assert np.array_equal(a.project(xf), b.project(xf))
+
+
+def _unnamed(p):
+    """The problem as built field by field: no variable or row names."""
+    return dataclasses.replace(p, variable_names=[], row_names=[])
+
+
+def _fixed_twelve(P):
+    """The twelve binaries with column 3 fixed to 1 by its bounds."""
+    p = twelve_binaries(P)
+    lb, ub = p.variable_lower_bounds.copy(), p.variable_upper_bounds.copy()
+    lb[3] = ub[3] = 1.0
+    return dataclasses.replace(p, variable_lower_bounds=lb,
+                               variable_upper_bounds=ub)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_eliminate_fixed_unnamed(seed):
+    """Without names the reduction keeps none and builds the named
+    problem's arrays."""
+    tp = random_mip(seed)
+    rng = np.random.default_rng(100 + seed)
+    fix = rng.random(tp.n_variables) < 0.3
+    lv = np.where(fix, 1.0, tp.variable_lower_bounds)
+    uv = np.where(fix, 1.0, tp.variable_upper_bounds)
+    a = T.eliminate_fixed(tp, lv, uv)
+    b = T.eliminate_fixed(_unnamed(tp), lv, uv)
+    assert a.problem.variable_names == [f"x{j}" for j in a.keep]
+    assert b.problem.variable_names == [] and b.problem.row_names == []
+    for f in ("offsets", "indices", "values", "objective_coefficients",
+              "constraint_lower_bounds", "constraint_upper_bounds",
+              "variable_lower_bounds", "variable_upper_bounds"):
+        assert np.array_equal(getattr(a.problem, f), getattr(b.problem, f))
+    assert np.array_equal(a.keep, b.keep)
+
+
+def test_solve_mip_unnamed_with_fixed_column():
+    """solve_mip on the unnamed twelve binaries whose presolve fixes a
+    column: the named problem's status, objective and point."""
+    s = MIPSolverSettings()
+    s.time_limit = 30
+    s.log_to_console = False
+    named = _fixed_twelve(TProb)
+    a = solve_mip(named, s, device="cpu")
+    b = solve_mip(_unnamed(named), s, device="cpu")
+    assert a.get_termination_status() == \
+        TC.CUOPT_TERIMINATION_STATUS_OPTIMAL
+    assert b.get_termination_status() == a.get_termination_status()
+    assert b.get_primal_objective() == a.get_primal_objective() == \
+        brute_force_min(named)
+    assert np.array_equal(b.get_primal_solution(), a.get_primal_solution())
+    # cuopt_tpu keeps the fault: its eliminate_fixed indexes the empty
+    # name list (cuopt_tpu/mip/presolve.py:357)
+    from cuopt_tpu.lp.settings import MIPSolverSettings as JSettings
+    from cuopt_tpu.mip.solve import solve_mip as j_solve_mip
+
+    js = JSettings()
+    js.time_limit = 30
+    js.log_to_console = False
+    with pytest.raises(IndexError):
+        j_solve_mip(_unnamed(_fixed_twelve(JProb)), js)
 
 
 # ------------------------------------- test_mip_solver.py cases, on the port

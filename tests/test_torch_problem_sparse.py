@@ -176,3 +176,57 @@ def test_operator_methods_match(kind, case):
     for name, a, b in checks:
         assert a.dtype == torch.float64, name
         assert _rel(a.numpy(), b) < 1e-12, (name, _rel(a.numpy(), b))
+
+
+def _outlier_row(p, m):
+    """p's CSR with 300 scattered entries in place of row 0's (a dense
+    coupling row), as tests/test_sparse_ops.py:96 builds it."""
+    offs, idx = np.asarray(p.offsets), np.asarray(p.indices)
+    vals = np.asarray(p.values, np.float64)
+    rng = np.random.default_rng(0)
+    idx = np.concatenate([rng.choice(m, 300, replace=False), idx[offs[1]:]])
+    vals = np.concatenate([rng.normal(size=300), vals[offs[1]:]])
+    offs = offs.copy()
+    offs[1:] = offs[1:] - (offs[1] - offs[0]) + 300
+    return offs, idx, vals
+
+
+@pytest.mark.parametrize("case", ["banded-auto", "shuffled-auto",
+                                  "outlier-row"])
+def test_operator_choice_matches(case):
+    """tests/test_sparse_ops.py:62-190: "auto" takes the block band for a
+    banded matrix and the permuted band for a shuffled one; a dense
+    coupling row goes to the spill, not into the window. Both packages
+    build the same operator."""
+    n = 3000 if case == "shuffled-auto" else 4000
+    p = j_generate_lp(n, n, 6, seed=7 if case == "shuffled-auto" else 2,
+                      band=160 if case == "shuffled-auto" else 192)
+    off, idx, val = p.offsets, p.indices, p.values
+    kind, kw = "auto", dict(dense_size_limit=1 << 10)
+    if case == "shuffled-auto":
+        rng = np.random.default_rng(8)
+        off, idx, val = permute_csr(np.asarray(off), np.asarray(idx),
+                                    np.asarray(val, np.float64),
+                                    rng.permutation(n), rng.permutation(n),
+                                    n, n)
+    elif case == "outlier-row":
+        off, idx, val = _outlier_row(p, n)
+        kind, kw = "blockband", {}
+    t_op = t_build(off, idx, val, n, n, dtype=torch.float64, kind=kind,
+                   device="cpu", **kw)
+    j_op = j_build(off, idx, val, n, n, dtype=jnp.float64, kind=kind, **kw)
+    want = {"banded-auto": "BlockBandOp", "shuffled-auto": "PermutedOp",
+            "outlier-row": "BlockBandOp"}[case]
+    assert type(t_op).__name__ == type(j_op).__name__ == want
+    _assert_same_fields(_fields(t_op), _fields(j_op))
+    if case == "outlier-row":
+        assert t_op.w_row < n and t_op.spill_vals.numel() > 0
+
+
+def test_blockband_rejects_unstructured():
+    p = j_generate_lp(4000, 4000, 6, seed=2)  # uniform random columns
+    for build, dt in ((t_build, torch.float32), (j_build, jnp.float32)):
+        kw = {"device": "cpu"} if build is t_build else {}
+        with pytest.raises(ValueError):
+            build(p.offsets, p.indices, p.values, 4000, 4000, dtype=dt,
+                  kind="blockband", **kw)

@@ -68,3 +68,23 @@ def random_routes(rng, n_serve, n_fleet):
         routes[v] = [int(o) for o in orders[lo:bounds[v]]]
         lo = bounds[v]
     return routes
+
+
+def pd_wide(vrp, n=60, kind="R", seed=9):
+    """synth_gh_instance(n, kind, seed) as pickup-delivery pairs (order i
+    with i + n/2, the delivery's demand minus the pickup's, as gh60's
+    "pd" variant), every order's window [0, the depot's close], the
+    instance's service times. chip_smoke.py's phase 20 builds GHC_200_1
+    the same way."""
+    inst = vrp.synth_gh_instance(n, kind, seed=seed)
+    h = n // 2
+    d = inst.demand.copy()
+    d[1 + h:] = -d[1:1 + h]
+    inst.demand = d
+    inst.tw_early = inst.tw_early.copy()
+    inst.tw_late = inst.tw_late.copy()
+    inst.tw_early[1:] = 0.0
+    inst.tw_late[1:] = inst.tw_late[0]
+    dm = inst.to_data_model()
+    dm.set_pickup_delivery_pairs(np.arange(h), np.arange(h, n))
+    return inst, dm
