@@ -101,7 +101,9 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      csrc/c_api_check.c as a process (when the Python has a shared
      libpython), with the in-process answer to its LP;
   18. service: `python -m cuopt_torch.server -d 1`, its worker on the
-     card (listed by nvidia-smi): staircase-50k's LP as JSON (through
+     card (listed by nvidia-smi), waited for on /v2/health/ready (503
+     until the worker has passed its health check; the seconds to live
+     and to ready printed): staircase-50k's LP as JSON (through
      shared memory) and as msgpack+zlib, OPTIMAL within 1e-3, submit to
      result beside the reported solve time; twelve-binaries at -82 with
      an incumbent; GHC_200_1 for 10 s, every order once, time windows and
@@ -132,12 +134,17 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      arrival stamp with 10 seeded new pairs (the model's orders exactly
      the unfinished and the new, each dummy pickup pinned to its
      carrier) and solved again for 10 s: status 0, every order once,
-     pairs on one vehicle pickup first, pins, time windows and each
-     route's demand rechecked on the host (the load carried between
-     stops printed); GHC_200_1 weighted [COST, TRAVEL_TIME], its reported
+     pairs on one vehicle pickup first, pins, time windows, each route's
+     demand and the load carried after every stop rechecked on the host
+     (the local search's host rechecks of device moves printed, checked
+     and passed, and the diversity loop's children), the move scores of its routes on the card equal to the
+     CPU's, every pair relocate they allow within the carried load on the
+     host; GHC_200_1 weighted [COST, TRAVEL_TIME], its reported
      values within 1e-9 of the host's from its routes; GHC_200_1 with 20
      seeded precedence chains: every link among served orders kept, the
-     orders left out exactly those reported; the twelve binaries built
+     orders left out exactly those reported (their count printed beside
+     the 7 of the run before the repair step, with the diversity loop's
+     children); the twelve binaries built
      field by field without names, a column fixed by its bounds, by
      solve_mip at the named problem's optimum. No row-pass launch.
 
@@ -2141,17 +2148,26 @@ def phase_service(p50, workdir):
         stdout=server_log, stderr=subprocess.STDOUT)
     pids = []
     try:
+        # live (/cuopt/health) answers once the HTTP server listens, ready
+        # (/v2/health/ready) once its worker has passed its health check
         end = time.monotonic() + 120
+        t_live = None
         while True:
             try:
-                if _http(base, "GET", "/cuopt/health", timeout=5)[0] == 200:
+                if t_live is None and _http(
+                        base, "GET", "/cuopt/health", timeout=5)[0] == 200:
+                    t_live = time.perf_counter() - t_start
+                if t_live is not None and _http(
+                        base, "GET", "/v2/health/ready", timeout=5)[0] == 200:
                     break
             except OSError:
                 pass
             require(proc.poll() is None and time.monotonic() < end,
-                    "service: the server did not start")
+                    "service: the server's worker did not become ready")
             time.sleep(0.2)
-        log(f"[service] server up in {time.perf_counter() - t_start:.2f} s")
+        log(f"[service] server live in {t_live:.2f} s, ready (its worker "
+            f"past its health check) in {time.perf_counter() - t_start:.2f}"
+            f" s")
 
         # staircase-50k as JSON
         payload = lp_payload(p50)
@@ -2697,6 +2713,56 @@ def gh200_pd():
     return dm
 
 
+def gh200_chains(inst=None):
+    """GHC_200_1 with CHAINS seeded precedence chains of three orders,
+    each chain ordered by the orders' windows: (DataModel, links)."""
+    from cuopt_torch.io.vrp import synth_gh_instance
+
+    inst = inst or synth_gh_instance(200, "C", 1)
+    dm = inst.to_data_model()
+    rng = np.random.default_rng(21)
+    links = []
+    for chain in rng.choice(200, (CHAINS, 3), replace=False):
+        a, b, c = sorted(chain.tolist(),
+                         key=lambda o: (inst.tw_early[o + 1], o))
+        dm.add_order_precedence(b, [a])
+        dm.add_order_precedence(c, [b])
+        links += [(a, b), (b, c)]
+    return dm, links
+
+
+def counted_solve(dm, limit, device):
+    """The routing Solve of `dm` for `limit` s, seed 0, with what it did:
+    (solution, wall seconds, {"checked", "passed": the local search's host
+    rechecks of device moves (_ls_recheck_stats on the solve's problem),
+    "children": the diversity loop's children (the local-search passes
+    less the two before the loop)}). It reads them through
+    solver.build_problem and solver._local_search, which every version
+    of the port has, so that scripts/torch_pd_recheck.py counts a parent
+    checkout's solve the same way."""
+    from cuopt_torch.routing import Solve
+    from cuopt_torch.routing import solver as rs
+
+    probs, passes = [], [0]
+    build, search = rs.build_problem, rs._local_search
+
+    def counting(*args, **kw):
+        passes[0] += 1
+        return search(*args, **kw)
+
+    rs.build_problem = lambda d: probs.append(build(d)) or probs[-1]
+    rs._local_search = counting
+    try:
+        t0 = time.perf_counter()
+        sol = Solve(dm, _routing_settings(limit), device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        rs.build_problem, rs._local_search = build, search
+    checked, passed = getattr(probs[-1], "_ls_recheck_stats", (0, 0))
+    return sol, wall, dict(checked=checked, passed=passed,
+                           children=max(passes[0] - 2, 0))
+
+
 def _order_rows(table):
     """{vehicle: [(order, arrival), ...] in arrival order} of a route
     table's order rows."""
@@ -2715,11 +2781,10 @@ def host_model_check(dm, table):
     time-window violation, max capacity excess of a route's demand, max
     excess of the load carried after a stop, pairs broken (split over
     vehicles or delivery first), orders off their pinned vehicle, COST
-    and TRAVEL_TIME of the routes). Both packages hold a route's summed
-    demand to the capacity (internal.py route_feasible), which for
-    pickup-delivery pairs is the net load, not the load carried between
-    them (ROADMAP Queue 3): the smoke requires the first and prints the
-    second. Each vehicle leaves its start at its
+    and TRAVEL_TIME of the routes). For pickup-delivery pairs the summed
+    demand is the net load; the port holds the load carried after every
+    stop (internal.py route_feasible; cuopt_tpu holds the net load), and
+    the smoke requires both. Each vehicle leaves its start at its
     window's opening, waits for an order's window to open and returns to
     its return location."""
     loc = np.asarray(dm.order_locations)
@@ -2802,7 +2867,67 @@ def _check_routes(name, dm, sol, wall, unserved_ok=False):
     require(chk["off_pin"] == 0, f"{name}: an order off its vehicle")
     require(chk["tw_viol"] <= 1e-6 and chk["cap_viol"] <= 1e-9,
             f"{name}: a route breaks its time windows or capacity")
+    require(chk["carried"] <= 1e-9,
+            f"{name}: a route carries more than its capacity after a stop")
     return chk
+
+
+def _pair_moves_on_card(dm, table, device):
+    """The local search's move scores of the pickup-delivery routes in
+    `table` (the port's carried-load path: peaks from the running load,
+    Or-opt moving a pickup with its adjacent delivery) on `device` and on
+    the CPU: every score tensor finite at the same entries, deltas within
+    1e-3. Every pair relocate the card scores as feasible, applied on the
+    host, leaves both routes within their capacity after every stop, each
+    pickup before its delivery. Returns (finite moves, pair relocates)."""
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.solver import (
+        _apply_move,
+        _pad_len,
+        _routes_to_arrays,
+    )
+
+    prob = build_problem(dm)
+    require(np.array_equal(prob.serve_orders, np.arange(prob.n_serve)),
+            "pair moves: serve indices are not the order ids")
+    routes = {v: [] for v in range(prob.n_fleet)}
+    for v, rows in _order_rows(table).items():
+        routes[v] = [o for o, _ in rows]
+    R, lens = _routes_to_arrays(prob, routes, _pad_len(routes, headroom=12))
+    scores = []
+    for dev in (device, "cpu"):
+        lsp = ls.build_ls_problem(prob, device=dev)
+        require(lsp.has_pairs, "pair moves: the problem has no pairs")
+        scores.append([ls.to_host(x) for x in ls._move_scores(
+            lsp, ls._ids(lsp, R), ls._ids(lsp, lens))])
+    live = 0
+    for x, y in zip(*scores):
+        fx, fy = x < ls.BIG / 2, y < ls.BIG / 2
+        require(np.array_equal(fx, fy) and np.allclose(
+            x[fx], y[fy], rtol=1e-5, atol=1e-3),
+            f"pair moves: {device} and the CPU disagree")
+        live += int(fx.sum())
+
+    def carried_ok(v, r):
+        load = np.cumsum(prob.demand[:, r], axis=1)
+        pos = {o: k for k, o in enumerate(r)}
+        return bool(np.all(load <= prob.capacity[:, v, None] + 1e-9)) and \
+            all(pos.get(int(prob.pd_partner[o]), -1) > k
+                for k, o in enumerate(r) if prob.pd_sign[o] > 0)
+
+    pairs = 0
+    for f2, j, f1, i in np.argwhere(scores[0][4] < ls.BIG / 2):
+        if prob.pd_partner[R[f1, i]] != R[f1, i + 1]:
+            continue
+        pairs += 1
+        new = _apply_move({v: list(r) for v, r in routes.items()}, 4,
+                          (f2, j, f1, i))
+        require(carried_ok(int(f1), new[int(f1)]) and
+                carried_ok(int(f2), new[int(f2)]),
+                f"pair moves: relocate {(f2, j, f1, i)} breaks the "
+                f"carried load")
+    return live, pairs
 
 
 def _routing_settings(limit):
@@ -2824,9 +2949,18 @@ def phase_reroute(device="cuda"):
     from cuopt_torch.routing import Solve, construct_rerouting_model
 
     dm = gh200_pd()
+    sol, wall, st = counted_solve(dm, REROUTE_LIMIT, device)
+    _check_routes("GHC_200_1-pd", dm, sol, wall)
+    log(f"[phase20] GHC_200_1-pd: the local search's host recheck took "
+        f"{st['checked']} device moves, passed {st['passed']} on cost and "
+        f"feasibility ({st['checked'] - st['passed']} rejected); "
+        f"{st['children']} children in the diversity loop")
     t0 = time.perf_counter()
-    sol = Solve(dm, _routing_settings(REROUTE_LIMIT), device=device)
-    _check_routes("GHC_200_1-pd", dm, sol, time.perf_counter() - t0)
+    live, pairs = _pair_moves_on_card(dm, sol.get_route(), device)
+    log(f"[phase20] GHC_200_1-pd: move scores of its routes on {device} "
+        f"equal to the CPU's ({live} feasible moves, {pairs} pair "
+        f"relocates, each within the carried load on the host) in "
+        f"{time.perf_counter() - t0:.2f} s")
     table = sol.get_route()
     t_mid = 0.5 * float(table["arrival_stamp"].max())
     rng = np.random.default_rng(20)
@@ -2901,22 +3035,16 @@ def phase_objectives(device="cuda"):
         f" (host {total:.6f}); largest relative gap {max(rel):.2e}")
     require(max(rel) <= 1e-9, "objectives: reported values off the routes")
 
-    dm = inst.to_data_model()
-    rng = np.random.default_rng(21)
-    picked = rng.choice(200, (CHAINS, 3), replace=False)
-    links = []
-    for chain in picked:
-        a, b, c = sorted(chain.tolist(),
-                         key=lambda o: (inst.tw_early[o + 1], o))
-        dm.add_order_precedence(b, [a])
-        dm.add_order_precedence(c, [b])
-        links += [(a, b), (b, c)]
-    t0 = time.perf_counter()
-    sol = Solve(dm, _routing_settings(OBJ_LIMIT), device=device)
-    # both packages leave some orders of these chains unserved (ROADMAP
-    # Queue 3): the solve must say which, and keep every link it serves
+    dm, links = gh200_chains(inst)
+    sol, wall, st = counted_solve(dm, OBJ_LIMIT, device)
+    # some orders of these chains may stay unserved: the solve must say
+    # which, and keep every link it serves
     _check_routes(f"GHC_200_1 + {CHAINS} precedence chains", dm, sol,
-                  time.perf_counter() - t0, unserved_ok=True)
+                  wall, unserved_ok=True)
+    log(f"[phase20] precedence: {len(sol.get_infeasible_orders())} of 200 "
+        f"orders undeliverable after {OBJ_LIMIT} s (7 on the card before "
+        f"unserved successors were reinserted), {st['children']} children "
+        f"in the diversity loop")
     arr = {o: t for rows in _order_rows(sol.get_route()).values()
            for o, t in rows}
     late = [(a, b) for a, b in links if b in arr and

@@ -102,61 +102,120 @@ def cheapest_insertion(
     return routes, unassigned
 
 
-def greedy_reinsert(prob, routes, removed, rng=None, noise=0.1):
-    """Reinsert removed orders (ruin & recreate step). With precedence
-    constraints, insertion positions are filtered so the resulting
-    arrival times respect every affected pair (precedence by
-    construction, not post-hoc repair)."""
+_SCAN_MEMO_MAX = 20_000  # scans a memo keeps before it starts over
+
+
+def _precedence_links(prob):
+    """{order: the orders it shares a precedence link with}."""
+    links: dict[int, set[int]] = {}
+    for o, preds in prob.precedence:
+        for p in preds:
+            links.setdefault(int(o), set()).add(int(p))
+            links.setdefault(int(p), set()).add(int(o))
+    return links
+
+
+def _feasible_positions(prob, v, r, unit, arr, links, memo):
+    """Every position of `unit` (an order, or a pickup and its delivery)
+    in route r of vehicle v that route_feasible and, with precedence,
+    insert_precedence_ok allow, in scan order: (cost change, i, j), the
+    unit's first order at i and its delivery at j of the route with the
+    first inserted (j None for a single order). The scan reads the route
+    and, through the precedence check, the arrivals of the orders linked
+    to it on other routes: `memo` keeps it under exactly those."""
+    key = None
+    if memo is not None:
+        ext = ()
+        if arr is not None:
+            inside = set(r) | set(unit)
+            ext = tuple((x, arr[x]) for x in sorted(
+                {x for y in inside for x in links.get(y, ())} - inside))
+        key = (unit, v, tuple(r), ext)
+        if key in memo:
+            return memo[key]
+    out = []
+    base = prob.route_cost(v, r) if r else 0.0
+    for i in range(len(r) + 1):
+        cand = r[:i] + [unit[0]] + r[i:]
+        for j in ([None] if len(unit) == 1 else
+                  range(i + 1, len(cand) + 1)):
+            c = cand if j is None else cand[:j] + [unit[1]] + cand[j:]
+            if prob.route_feasible(v, c) and (
+                arr is None or insert_precedence_ok(prob, arr, v, c)
+            ):
+                out.append((prob.route_cost(v, c) - base, i, j))
+    if key is not None:
+        if len(memo) >= _SCAN_MEMO_MAX:
+            memo.clear()
+        memo[key] = out
+    return out
+
+
+def greedy_reinsert(prob, routes, removed, rng=None, noise=0.1, timer=None,
+                    prize_bound=False, memo=None):
+    """Reinsert removed orders (the ruin & recreate step, and the search's
+    repair of the orders precedence left out), each at its cheapest
+    feasible position, a pickup with its delivery. With precedence
+    constraints, orders go in precedence-depth order; insertion positions
+    are filtered so the resulting arrival times respect every affected
+    pair (precedence by construction, not post-hoc repair), and an order
+    whose predecessor is not served stays out (insert_precedence_ok
+    passes over an unserved predecessor, which precedence_ok rejects).
+    prize_bound: a prize order goes in only below its prize. timer: the
+    orders left when it expires stay out. memo: a dict kept across calls
+    on one problem, so that an order is scanned again only where its
+    route or the arrivals its check reads changed. Returns (routes,
+    orders left out)."""
     rng = rng or np.random.default_rng(0)
     unassigned = []
     prec = bool(prob.precedence)
+    links = preds = served = None
     if prec:
         depth = precedence_depth(prob)
         removed = sorted(removed, key=lambda o: (depth[int(o)], int(o)))
+        links = _precedence_links(prob)
+        preds = {int(o): [int(p) for p in ps] for o, ps in prob.precedence}
+        served = {o for r in routes.values() for o in r}
     for o in removed:
-        arr = order_arrival_times(prob, routes) if prec else None
         partner = -1
         if prob.pd_partner is not None and prob.pd_partner[o] >= 0 and \
                 prob.pd_sign[o] > 0:
             partner = int(prob.pd_partner[o])
         elif prob.pd_partner is not None and prob.pd_sign[o] < 0:
             continue  # inserted with its pickup
+        unit = (o,) if partner < 0 else (o, partner)
+        if (timer is not None and timer.expired()) or (prec and any(
+                p not in served and p not in unit
+                for u in unit for p in preds.get(u, ()))):
+            unassigned.extend(unit)
+            continue
+        arr = order_arrival_times(prob, routes) if prec else None
         best = None
         for v in range(prob.n_fleet):
             if prob.allowed_vehicles is not None and not (
                 prob.allowed_vehicles[o, v]
             ):
                 continue
-            r = routes[v]
-            base = prob.route_cost(v, r) if r else 0.0
-            for i in range(len(r) + 1):
-                cand = r[:i] + [o] + r[i:]
-                if partner >= 0:
-                    for j in range(i + 1, len(cand) + 1):
-                        cand2 = cand[:j] + [partner] + cand[j:]
-                        if prob.route_feasible(v, cand2) and (
-                            not prec
-                            or insert_precedence_ok(prob, arr, v, cand2)
-                        ):
-                            delta = prob.route_cost(v, cand2) - base
-                            delta *= 1.0 + noise * rng.uniform(-1, 1)
-                            if best is None or delta < best[0]:
-                                best = (delta, v, cand2)
-                else:
-                    if prob.route_feasible(v, cand) and (
-                        not prec
-                        or insert_precedence_ok(prob, arr, v, cand)
-                    ):
-                        delta = prob.route_cost(v, cand) - base
-                        delta *= 1.0 + noise * rng.uniform(-1, 1)
-                        if best is None or delta < best[0]:
-                            best = (delta, v, cand)
+            r = routes.get(v, [])
+            for delta, i, j in _feasible_positions(prob, v, r, unit, arr,
+                                                   links, memo):
+                delta *= 1.0 + noise * rng.uniform(-1, 1)
+                if best is None or delta < best[0]:
+                    best = (delta, v, i, j)
+        if best is not None and prize_bound and prob.prizes is not None \
+                and best[0] >= sum(prob.prizes[u] for u in unit) - 1e-9:
+            best = None
         if best is None:
-            unassigned.append(o)
-            if partner >= 0:
-                unassigned.append(partner)
+            unassigned.extend(unit)
         else:
-            routes[best[1]] = best[2]
+            _, v, i, j = best
+            r = list(routes.get(v, []))
+            r.insert(i, o)
+            if j is not None:
+                r.insert(j, partner)
+            routes[v] = r
+            if prec:
+                served.update(unit)
     return routes, unassigned
 
 

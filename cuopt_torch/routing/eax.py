@@ -57,7 +57,10 @@ def _ab_cycles(ea, eb, rng):
     Standard construction (ab_cycle.hpp role): walk the difference graph
     alternating A-edges and B-edges; every vertex has equal A- and
     B-degree in the difference, so alternating walks close into cycles.
-    Returns a list of cycles, each a list of (edge, from_a) tuples.
+    Returns a list of cycles, each a list of (edge, from_a) tuples of
+    even length that starts on an A edge and ends on a B edge back at
+    its start vertex (cuopt_tpu closes a walk after an A edge instead, so
+    its cycles are odd and both their ends come from A).
     """
     from collections import Counter, defaultdict
 
@@ -80,13 +83,15 @@ def _ab_cycles(ea, eb, rng):
             continue
         u0, v0 = diff_a[start_i]
         used_a[start_i] = True
-        cyc = [((u0, v0), True)]
-        cur = v0
-        need_b = True  # next edge must come from parent B
-        ok = False
+        # the open walk: path[k] is the vertex edge walk[k] leaves, and
+        # walk[k] comes from A exactly when k is even
+        path = [u0, v0]
+        walk = [((u0, v0), True)]
         guard = 0
-        while guard <= 2 * (len(diff_a) + len(diff_b) + 1):
+        while walk and guard <= 2 * (len(diff_a) + len(diff_b) + 1):
             guard += 1
+            need_b = walk[-1][1]  # an A edge is followed by a B edge
+            cur = path[-1]
             pool = adj_b[cur] if need_b else adj_a[cur]
             used = used_b if need_b else used_a
             elist = diff_b if need_b else diff_a
@@ -95,14 +100,22 @@ def _ab_cycles(ea, eb, rng):
                 break  # dead end: discard walk (edges stay consumed)
             used[nxt] = True
             u, v = elist[nxt]
-            cyc.append(((u, v), not need_b))
+            walk.append(((u, v), not need_b))
             cur = v if cur == u else u
-            need_b = not need_b
-            if cur == u0 and need_b:
-                ok = True  # closed: even alternating cycle ending on B
-                break
-        if ok:
-            cycles.append(cyc)
+            path.append(cur)
+            if not need_b:
+                continue
+            # a B edge just came back to a vertex that an A edge of the
+            # walk leaves (the start, or one met on the way): the part of
+            # the walk from there is an AB-cycle, even and alternating,
+            # starting on A and ending on B. cuopt_tpu closes only at the
+            # start and after an A edge, so its cycles are odd.
+            k = next((k for k in range(len(walk) - 2, -1, -2)
+                      if path[k] == cur), None)
+            if k is not None:
+                cycles.append(walk[k:])
+                del walk[k:]
+                del path[k + 1:]
     return cycles
 
 

@@ -280,8 +280,11 @@ class RoutingProblem:
     def route_feasible(self, vehicle: int, route: list[int]) -> bool:
         if not route:
             return True
-        load = self.demand[:, route].sum(axis=1)
-        if np.any(load > self.capacity[:, vehicle] + 1e-9):
+        # the load carried after each stop: a pickup's load rides until
+        # its delivery, so the route's summed (net) demand is not enough.
+        # With no negative demand the largest prefix is the total.
+        load = np.cumsum(self.demand[:, route], axis=1)
+        if np.any(load > self.capacity[:, vehicle, None] + 1e-9):
             return False
         if self.allowed_vehicles is not None:
             if not np.all(self.allowed_vehicles[route, vehicle]):

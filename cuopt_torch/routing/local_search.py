@@ -94,6 +94,11 @@ class LsProblem:
     allow_2opt: bool
     has_max_cost: bool = False
     has_prize: bool = False
+    # pickup-delivery pairs: moves are held to the load carried after
+    # each stop, not the route's (net) total; pair_next[o] is the
+    # delivery of pickup o, -1 for every other order
+    has_pairs: bool = False
+    pair_next: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -141,6 +146,8 @@ def build_ls_problem(prob, dtype=_F32, device="cuda") -> LsProblem:
     )
     has_tw = has_tw or bool(np.any(np.isfinite(prob.veh_max_time)))
     has_max_cost = bool(np.any(np.isfinite(prob.veh_max_cost)))
+    has_pairs = prob.pd_partner is not None and \
+        bool(np.any(prob.pd_partner >= 0))
 
     def val(a):  # rounded to `dtype` on the host, then moved
         return torch.as_tensor(np.asarray(a, np.float64)).to(dtype).to(
@@ -178,6 +185,9 @@ def build_ls_problem(prob, dtype=_F32, device="cuda") -> LsProblem:
         allow_2opt=bool(sym) and not has_tw,
         has_max_cost=has_max_cost,
         has_prize=prob.prizes is not None,
+        has_pairs=has_pairs,
+        pair_next=idx(np.where(prob.pd_sign > 0, prob.pd_partner, -1))
+        if has_pairs else None,
     )
 
 
@@ -196,7 +206,10 @@ def _route_tensors(p: LsProblem, R, lens):
     """Augmented per-route tensors: locations, departures, slacks, loads.
 
     R: (F, L) serve-order ids, -1 padded. Positions 1..len hold orders;
-    position 0 is the vehicle start, position len+1 the return.
+    position 0 is the vehicle start, position len+1 the return. With
+    pickup-delivery pairs the last tensor is the load carried after each
+    position, (ndim, F, L) (padding repeats the route's total); None
+    without pairs.
     """
     F, L = R.shape
     dtype = p.e.dtype
@@ -246,8 +259,23 @@ def _route_tensors(p: LsProblem, R, lens):
         lats.append(lat_next)
     lat = torch.stack(lats[::-1], dim=1)
 
-    load = torch.where(valid[None], p.demand[:, Rc], 0.0).sum(dim=2)
-    return locs, arr, dep, lat, load, ti, valid  # load: (ndim, F)
+    dem_pos = torch.where(valid[None], p.demand[:, Rc], 0.0)
+    load = dem_pos.sum(dim=2)  # (ndim, F)
+    pre_load = torch.cumsum(dem_pos, dim=2) if p.has_pairs else None
+    return locs, arr, dep, lat, load, ti, valid, pre_load
+
+
+def _carried(pre_load):
+    """(P, S), each (ndim, F, L+1), from _route_tensors' carried load:
+    P[j] the load after the first j orders (P[0] = 0), S[j] the largest
+    of P[j:], the peak a change of load from slot j on shifts. A
+    feasible route has every P within the capacity, so a move that adds
+    demand d at slot j keeps the route feasible when S[j] + d does."""
+    ndim, F, _ = pre_load.shape
+    P = torch.cat([torch.zeros((ndim, F, 1), dtype=pre_load.dtype,
+                               device=pre_load.device), pre_load], dim=2)
+    S = torch.flip(torch.cummax(torch.flip(P, [2]), dim=2).values, [2])
+    return P, S
 
 
 def _pair_costs(mats, ti, row_loc, u, transpose=False):
@@ -272,10 +300,19 @@ def _move_scores(p: LsProblem, R, lens):
     """Score all candidate moves; returns the five dense score tensors
     (relocate, swap, 2-opt, 2-opt*, or-opt2), masked-invalid = BIG."""
     F, L = R.shape
-    locs, arr, dep, lat, load, ti, valid = _route_tensors(p, R, lens)
+    locs, arr, dep, lat, load, ti, valid, pre_load = _route_tensors(
+        p, R, lens)
     cmat, tmat = p.cost_mats, p.time_mats  # (T, n, n), type-indexed
     Rc = torch.where(valid, R, 0)
     fvec = _arange(F, R)
+    # the load a change from slot j (relocate, insertion) or from
+    # position i (swap, removal) on adds to: the route's total without
+    # pairs, the peak carried load from there on with them
+    if pre_load is None:
+        peak_slot = peak_after = load[:, :, None]  # (ndim, F, 1)
+    else:
+        carried, peak_slot = _carried(pre_load)    # (ndim, F, L+1)
+        peak_after = peak_slot[:, :, 1:]           # (ndim, F, L)
 
     # per-route current arc cost, for max-route-cost move dimensions
     if p.has_max_cost:
@@ -320,9 +357,13 @@ def _move_scores(p: LsProblem, R, lens):
     # feasibility
     slot_valid = slot[None, :] <= lens[:, None]  # (F2, L+1)
     cap_ok = torch.all(
-        (load[:, :, None, None, None] + u_dem[:, None, None, :, :])
+        (peak_slot[:, :, :, None, None] + u_dem[:, None, None, :, :])
         <= p.capacity[:, :, None, None, None] + 1e-6, dim=0,
-    )[:, 0]  # (F2, F1, L)
+    )  # (F2, 1 or L+1, F1, L)
+    if pre_load is not None:
+        # the donor's load after u's position drops by u's demand
+        cap_ok = cap_ok & torch.all(
+            peak_after - u_dem <= p.capacity[:, :, None] + 1e-6, dim=0)
     allowed_ok = p.allowed[Rc].permute(2, 0, 1)  # (F2, F1, L)
     if p.has_tw:
         tA = _pair_costs(tmat, ti, q_loc, u_loc_flat).reshape(
@@ -346,7 +387,7 @@ def _move_scores(p: LsProblem, R, lens):
     reloc_mask = (
         slot_valid[:, :, None, None]
         & u_movable[None, None, :, :]
-        & cap_ok[:, None, :, :]
+        & cap_ok
         & allowed_ok[:, None, :, :]
         & tw_ok
         & ~same_route
@@ -381,7 +422,7 @@ def _move_scores(p: LsProblem, R, lens):
 
     dem_u = p.demand[:, Rc]  # (ndim, F, L)
     cap_ok_sw = torch.all(
-        (load[:, :, None, None, None] - dem_u[:, :, :, None, None]
+        (peak_after[:, :, :, None, None] - dem_u[:, :, :, None, None]
          + dem_u[:, None, None, :, :])
         <= p.capacity[:, :, None, None, None] + 1e-6, dim=0,
     )  # (F1, L_i, F2, L_k) load1 - u + w
@@ -452,6 +493,17 @@ def _move_scores(p: LsProblem, R, lens):
             & (k_idx < lens[:, None, None])
             & valid[:, :, None] & valid[:, None, :]
         )
+        if pre_load is not None:
+            # reversed, orders k..i are taken in turn: the peak inside
+            # is carried[i] + carried[k+1] - min(carried[i..k])
+            t_idx = _arange(L, R)
+            low = torch.where(
+                t_idx[None, None, None, :] >= i_idx[None],
+                carried[:, :, None, :L], BIG)        # (ndim, F, L_i, L_t)
+            low = torch.cummin(low, dim=3).values    # min over [i..k]
+            two_mask = two_mask & torch.all(
+                carried[:, :, :L, None] + carried[:, :, None, 1:] - low
+                <= p.capacity[:, :, None, None] + 1e-6, dim=0)
         two_score = torch.where(two_mask, two_delta, BIG)
     else:
         two_score = torch.full((F, 1, 1), BIG, dtype=reloc_score.dtype,
@@ -535,8 +587,11 @@ def _move_scores(p: LsProblem, R, lens):
         & (p.skip_first[:, None] == p.skip_first[None, :])
         & (p.drop_return[:, None] == p.drop_return[None, :])
     )  # (F1, F2)
+    # the received tail adds its demand to the kept head's load; with
+    # pairs, its peak rise over its first stop
+    tail_rise = suf_dem if pre_load is None else peak_slot - carried
     cap1_ok = torch.all(
-        pre_dem[:, :, :, None, None] + suf_dem[:, None, None, :, :]
+        pre_dem[:, :, :, None, None] + tail_rise[:, None, None, :, :]
         <= p.capacity[:, :, None, None, None] + 1e-6, dim=0,
     )  # (F1, L+1, F2, L+1)
     cap2_ok = cap1_ok.permute(2, 3, 0, 1)
@@ -582,7 +637,18 @@ def _move_scores(p: LsProblem, R, lens):
             (cost1_new <= p.veh_max_cost[:, None, None, None] + 1e-6)
             & (cost2_new <= p.veh_max_cost[None, None, :, None] + 1e-6)
         )
-    ts_score = torch.where(ts_mask, ts_delta, BIG)
+    # exchanges that leave the cost as it is score 0: two empty tails
+    # (both routes unchanged), and two whole routes swapped between
+    # vehicles of one start and fixed cost. float32 rounds new1 + new2 -
+    # old1 - old2 there to as low as -2e-6, below the local search's
+    # -1e-7, so each was applied as an improving move (cuopt_tpu keeps
+    # the rounding)
+    same = (p.veh_start[:, None] == p.veh_start[None, :]) & \
+        (p.veh_fixed[:, None] == p.veh_fixed[None, :])       # (F1, F2)
+    no_op = ((i_c == lens[:, None, None, None])
+             & (k_c == lens[None, None, :, None])) | \
+        ((i_c == 0) & (k_c == 0) & same[:, None, :, None])
+    ts_score = torch.where(ts_mask, torch.where(no_op, 0.0, ts_delta), BIG)
 
     # ---- Or-opt: move the 2-segment (i, i+1) of r1 into slot (r2, j) ----
     seg_ok = valid & torch.cat(
@@ -612,10 +678,26 @@ def _move_scores(p: LsProblem, R, lens):
         seg_ok[None], p.demand[:, idsB_safe], 0.0
     )  # (ndim, F1, L)
     oro_cap_ok = torch.all(
-        (load[:, :, None, None, None] + seg_dem[:, None, None, :, :])
+        (peak_slot[:, :, :, None, None] + seg_dem[:, None, None, :, :])
         <= p.capacity[:, :, None, None, None] + 1e-6, dim=0,
-    )[:, 0]  # (F2, F1, L)
+    )  # (F2, 1 or L+1, F1, L)
     seg_movable = seg_ok & p.movable[idsA] & p.movable[idsB_safe]
+    if pre_load is not None:
+        # an adjacent pickup and its delivery move as one segment: the
+        # pair relocate. Its load rides between the two stops only, so
+        # the receiving route must carry the slot's load plus the
+        # pickup's there, and the rest of the route by the segment's net
+        oro_cap_ok = oro_cap_ok & torch.all(
+            carried[:, :, :, None, None]
+            + p.demand[:, idsA][:, None, None, :, :]
+            <= p.capacity[:, :, None, None, None] + 1e-6, dim=0)
+        # the donor's load after the segment drops by its net demand
+        after_seg = torch.cat([peak_slot[:, :, 2:], peak_slot[:, :, -1:]],
+                              dim=2)                     # (ndim, F1, L)
+        oro_cap_ok = oro_cap_ok & torch.all(
+            after_seg - seg_dem <= p.capacity[:, :, None] + 1e-6, dim=0)
+        seg_movable = seg_movable | (
+            seg_ok & (p.pair_next[idsA] == idsB_safe))
     alw_seg = p.allowed[idsA] & p.allowed[idsB_safe]  # (F1, L, F2)
     alw_seg_t = alw_seg.permute(2, 0, 1)              # (F2, F1, L)
     if p.has_tw:
@@ -640,7 +722,7 @@ def _move_scores(p: LsProblem, R, lens):
     oro_mask = (
         slot_valid[:, :, None, None]
         & seg_movable[None, None]
-        & oro_cap_ok[:, None]
+        & oro_cap_ok
         & alw_seg_t[:, None]
         & oro_tw_ok
         & ~same_route
@@ -698,7 +780,8 @@ def evaluate_moves(p: LsProblem, R, lens):
 
 def _insertion_scores(p: LsProblem, R, lens, cand):
     F, L = R.shape
-    locs, arr, dep, lat, load, ti, valid = _route_tensors(p, R, lens)
+    locs, arr, dep, lat, load, ti, valid, pre_load = _route_tensors(
+        p, R, lens)
     cmat, tmat = p.cost_mats, p.time_mats  # (T, n, n), type-indexed
     u_loc = p.order_loc[cand]                # (P,)
     slot = _arange(L + 1, R)
@@ -713,10 +796,13 @@ def _insertion_scores(p: LsProblem, R, lens, cand):
     delta = delta + torch.where(lens == 0, p.veh_fixed, 0.0)[None, :, None]
 
     slot_ok = slot[None, :] <= lens[:, None]           # (F, L+1)
+    # the route's total, or with pairs its peak carried load from the slot
+    peak_slot = load[:, :, None] if pre_load is None \
+        else _carried(pre_load)[1]
     cap_ok = torch.all(
-        load[:, None, :] + p.demand[:, cand][:, :, None]
-        <= p.capacity[:, None, :] + 1e-6, dim=0,
-    )  # (P, F)
+        peak_slot[:, None] + p.demand[:, cand][:, :, None, None]
+        <= p.capacity[:, None, :, None] + 1e-6, dim=0,
+    )  # (P, F, 1 or L+1)
     fit_ok = (lens + 1 <= L)[None, :]                  # (1, F)
     allowed_ok = p.allowed[cand]                       # (P, F)
     if p.has_tw:
@@ -734,7 +820,8 @@ def _insertion_scores(p: LsProblem, R, lens, cand):
         tw_ok = torch.ones_like(delta, dtype=torch.bool)
     mask = (
         slot_ok[None]
-        & (cap_ok & allowed_ok & fit_ok)[:, :, None]
+        & cap_ok
+        & (allowed_ok & fit_ok)[:, :, None]
         & tw_ok
     )
     if p.has_max_cost:
@@ -843,7 +930,8 @@ def evaluate_cycle_gains(p: LsProblem, R, lens):
     """
     R, lens = _ids(p, R), _ids(p, lens)
     F, L = R.shape
-    locs, arr, dep, lat, load, ti, valid = _route_tensors(p, R, lens)
+    locs, arr, dep, lat, load, ti, valid, pre_load = _route_tensors(
+        p, R, lens)
     cmat, tmat = p.cost_mats, p.time_mats  # (T, n, n), type-indexed
     Rc = torch.where(valid, R, 0)
     fvec = _arange(F, R)
@@ -870,11 +958,15 @@ def evaluate_cycle_gains(p: LsProblem, R, lens):
     dem_mov = torch.where(u_movable[None], u_dem, float("inf"))
     min_out = torch.amin(dem_mov, dim=2)      # (ndim, F2)
     min_out = torch.where(torch.isfinite(min_out), min_out, 0.0)
+    # r2's load from the slot on: its total, or with pairs its peak
+    # carried load from the slot on
+    peak_slot = load[:, :, None] if pre_load is None \
+        else _carried(pre_load)[1]
     cap_ok = torch.all(
-        load[:, :, None, None, None] - min_out[:, :, None, None, None]
+        peak_slot[:, :, :, None, None] - min_out[:, :, None, None, None]
         + u_dem[:, None, None]
         <= p.capacity[:, :, None, None, None] + 1e-6, dim=0,
-    )[:, 0]                                   # (F2, F1, L)
+    )                                         # (F2, 1 or L+1, F1, L)
     allowed_ok = p.allowed[Rc].permute(2, 0, 1)
     slot_ok = _arange(L + 1, R)[None, :] <= lens[:, None]
     if p.has_tw:
@@ -893,7 +985,7 @@ def evaluate_cycle_gains(p: LsProblem, R, lens):
     mask = (
         slot_ok[:, :, None, None]
         & u_movable[None, None]
-        & cap_ok[:, None]
+        & cap_ok
         & allowed_ok[:, None]
         & tw_ok
         & ~same
@@ -959,7 +1051,10 @@ def evaluate_vehicle_reassign(p: LsProblem, R, lens):
         dep_prev = a + s_aug[:, :, j]
     cost = c_arc.sum(dim=2)
     # capacity + order-vehicle match + fixed cost
-    load = torch.where(valid[None], p.demand[:, Rc], 0.0).sum(dim=2)
+    dem_pos = torch.where(valid[None], p.demand[:, Rc], 0.0)
+    # the route's total, or with pairs its peak carried load
+    load = dem_pos.sum(dim=2) if not p.has_pairs \
+        else torch.cumsum(dem_pos, dim=2).amax(dim=2)
     cap_ok = torch.all(load[:, None, :] <= p.capacity[:, :, None] + 1e-6,
                        dim=0)                     # (F2, F1)
     alw = torch.where(valid[:, :, None], p.allowed[Rc], True)
@@ -994,7 +1089,8 @@ def evaluate_prize_drops(p: LsProblem, R, lens):
     candidate tensors (local_search.cuh:102-160 prize collection)."""
     R, lens = _ids(p, R), _ids(p, lens)
     F, L = R.shape
-    locs, arr, dep, lat, load, ti, valid = _route_tensors(p, R, lens)
+    locs, arr, dep, lat, load, ti, valid, pre_load = _route_tensors(
+        p, R, lens)
     cmat = p.cost_mats
     Rc = torch.where(valid, R, 0)
     ar = _arange(F, R)[:, None]

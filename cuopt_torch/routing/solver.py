@@ -71,12 +71,13 @@ def _apply_move(routes, kind, mv):
 
 
 def _needs_exact_recheck(prob) -> bool:
-    """The device move evaluator scores TW/capacity/match constraints but
+    """The device move evaluator scores TW/capacity/match constraints
+    (with pickup-delivery pairs, the load carried after each stop) but
     not breaks, per-vehicle max cost/time, skip-first/drop-return arc
     pricing, cross-route precedence, or pickup-before-delivery inside a
-    route (a 2-opt reversal over a pair, and the load between them); those
-    need a host re-check of each applied move. (cuopt_tpu leaves pairs
-    out of the check, and returns such reversed routes as SUCCESS.)"""
+    route (a 2-opt reversal over a pair); those need a host re-check of
+    each applied move. (cuopt_tpu leaves pairs out of the check, and
+    returns such reversed routes as SUCCESS.)"""
     import numpy as np
 
     pd = prob.pd_partner is not None and bool(np.any(prob.pd_partner >= 0))
@@ -496,6 +497,33 @@ def _enforce_precedence(prob, routes, unassigned, rng, max_rounds=10):
     return routes, sorted(set(unassigned))
 
 
+def _reinsert_successors(prob, routes, unassigned, timer):
+    """Serve the unserved orders that precedence left out once their
+    predecessors are served: greedy_reinsert without noise puts each at
+    its cheapest position that route_feasible and insert_precedence_ok
+    allow, in precedence-depth order, a pickup with its delivery, an order
+    with an unserved predecessor left out, a prize order only below its
+    prize. The local search and GES only move served orders, and
+    construction places a successor before they run, so without this an
+    order that had no slot then stays out after a slot opens (cuopt_tpu
+    leaves it out). The scans are kept on the problem across calls
+    (greedy_reinsert's memo), and the step stops when `timer` expires.
+    Returns (routes, unassigned), the routes a new dict."""
+    from cuopt_torch.routing.construction import greedy_reinsert
+
+    if not prob.precedence or not unassigned:
+        return routes, unassigned
+    memo = getattr(prob, "_reinsert_memo", None)
+    if memo is None:
+        memo = prob._reinsert_memo = {}
+    routes, _ = greedy_reinsert(
+        prob, {v: list(r) for v, r in routes.items()},
+        [int(o) for o in unassigned], noise=0.0, timer=timer,
+        prize_bound=True, memo=memo)
+    served = {o for r in routes.values() for o in r}
+    return routes, [int(o) for o in unassigned if int(o) not in served]
+
+
 def _append_after_predecessors(prob, routes, left):
     from cuopt_torch.routing.internal import (
         insert_precedence_ok,
@@ -591,6 +619,8 @@ def Solve(data_model, solver_settings: SolverSettings | None = None,
                                              rng)
     routes = _local_search(prob, lsp, routes, timer,
                            unserved=unassigned)
+    routes, unassigned = _reinsert_successors(prob, routes, unassigned,
+                                              timer)
 
     from cuopt_torch.routing.diversity import (
         RoutingPopulation,
@@ -615,6 +645,8 @@ def Solve(data_model, solver_settings: SolverSettings | None = None,
                                              rng)
     routes = _local_search(prob, lsp, routes, timer,
                            unserved=unassigned)
+    routes, unassigned = _reinsert_successors(prob, routes, unassigned,
+                                              timer)
 
     if prob.prizes is not None:
         routes, unassigned = prize_filter(prob, routes, unassigned)
@@ -668,6 +700,7 @@ def Solve(data_model, solver_settings: SolverSettings | None = None,
         routes, un2 = child
         routes, un2 = _enforce_precedence(prob, routes, un2, rng)
         routes = _local_search(prob, lsp, routes, timer, unserved=un2)
+        routes, un2 = _reinsert_successors(prob, routes, un2, timer)
         if prob.prizes is not None:
             routes, un2 = prize_filter(prob, routes, un2)
         pop.add(prob, routes, un2)
@@ -681,8 +714,10 @@ def Solve(data_model, solver_settings: SolverSettings | None = None,
     best = pop.best
     if dump_path:
         _dump_best(prob, best, dump_path)
-    best_routes = best["routes"]
-    best_unassigned = best["unassigned"]
+    # every member went through the step when it was made, unless the
+    # timer cut it short: a last pass, with a twentieth of the limit
+    best_routes, best_unassigned = _reinsert_successors(
+        prob, best["routes"], best["unassigned"], Timer(0.05 * tl))
 
     if data_model.min_vehicles:
         best_routes = _enforce_min_vehicles(

@@ -8,6 +8,9 @@ process_handler.py (one solver Process per device, watch_solvers respawn
 cuopt_service.py:134-141), default 1; worker i solves on cuda:i, or on the
 CPU when CUOPT_TORCH_DEVICE says "cpu" (utils/device.py). A worker that
 dies while it solves is respawned, and its request ends as an error.
+The queue is ready once a live worker has passed its start-up health
+check (`is_ready`); a respawned worker is not ready until it has passed
+its own.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ class JobQueue:
         self.current = self.manager.dict()
         self.incumbents: dict[str, list] = {}
         self.logs: dict[str, list] = {}
+        # worker -> pid of the process that reported ready: a respawned
+        # worker has another pid, so it is not ready until it reports
+        self.ready_pids: dict[int, int] = {}
         self._lock = threading.Lock()  # incumbents and logs
         self.procs: list = []
         self._collector = None
@@ -130,11 +136,20 @@ class JobQueue:
         )
         self._watchdog.start()
 
+    def is_ready(self) -> bool:
+        """True once a live worker process has passed its start-up
+        health check."""
+        return any(p.is_alive() and self.ready_pids.get(i) == p.pid
+                   for i, p in enumerate(self.procs))
+
     def _collect(self):
         while not self._shutdown.is_set():
             try:
                 msg = self.results.get(timeout=0.25)
             except queue_mod.Empty:
+                continue
+            if msg["type"] == "ready":  # a worker's, not a request's
+                self.ready_pids[msg["worker"]] = msg["pid"]
                 continue
             req_id = msg["req_id"]
             if msg["type"] == "result":

@@ -15,6 +15,10 @@ routes, bodies and status codes, mirroring the reference FastAPI server
   DELETE /cuopt/solution/{id}             :635
   POST /cuopt/solution                    :467  (sync-style solve)
 
+`/v2/health/ready` answers 503 until a worker has passed its start-up
+health check (cuopt_tpu answers 200 at once); `/cuopt/health` and
+`/v2/health/live` report liveness, 200 as in the reference.
+
 Payloads: JSON, msgpack and zlib-compressed JSON or msgpack, chosen by
 Content-Type or the zlib magic bytes; msgpack is read by the port's own
 decoder (utils/msgpack_codec.py) and payloads are validated by
@@ -104,7 +108,7 @@ class Routes:
         self.table = [
             ("GET", r"/cuopt/health", self.health),
             ("GET", r"/cuopt/billing", self.billing),
-            ("GET", r"/v2/health/ready", self.empty),
+            ("GET", r"/v2/health/ready", self.ready),
             ("GET", r"/v2/health/live", self.empty),
             ("POST", r"/cuopt/request", self.submit),
             ("GET", r"/cuopt/solution/(?P<req_id>[^{}/]+)", self.poll),
@@ -144,6 +148,14 @@ class Routes:
 
     def empty(self, request):
         return 200, None
+
+    def ready(self, request):
+        """200 once a worker can solve: it has passed its start-up
+        health check. cuopt_tpu answers 200 at once, and the first
+        request waits out the worker's start."""
+        if self.jq.is_ready():
+            return 200, None
+        return 503, {"error": "no solver worker is ready"}
 
     def _payload(self, request):
         payload = decode_body(request.body(), request.content_type)

@@ -4,8 +4,9 @@ Counterpart of cuopt_tpu/server/worker.py, which mirrors reference
 process_handler.py (create_process :83-104) + the per-job flow in
 utils/solver.py (process_async_solve :332 with device health check :386
 and incumbent streaming :337). Each worker solves on the device its
-JobQueue gives it; the health check's error goes into the job's error
-and log.
+JobQueue gives it. It posts {"type": "ready"} once its start-up health
+check has passed, which /v2/health/ready waits for; a failed check
+posts nothing, and its error goes into each job's error and log.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ def worker_main(worker_id, device, jobs, results, abort_list, current):
         device_health_check(device)
     except Exception:  # noqa: BLE001  (reported with the first job)
         pass
+    else:
+        results.put({"type": "ready", "worker": worker_id,
+                     "pid": os.getpid()})
     while True:
         try:
             req_id, kind, payload = jobs.get(timeout=0.5)

@@ -207,14 +207,15 @@ def _gh40(vrp, seed):
                                  tw_frac=0.0).to_data_model()
 
 
-def test_ab_cycles_equal():
-    """tests/test_eax_cycles.py:34: the AB-cycles of two parents, equal in
-    both packages, their edges alternating between the parents. Open
-    fault of both (ROADMAP Queue 3): `_ab_cycles` closes a walk when it
-    returns to its start after an A edge (eax.py:101, `need_b` is True
-    then), so every cycle it returns has odd length, first and last edge
-    both from A; the JAX test's own parents give none, and it returns
-    before its even-length check."""
+def test_ab_cycles_are_ab_cycles():
+    """tests/test_eax_cycles.py:34 on the same two parents: every cycle
+    `_ab_cycles` returns is an AB-cycle, an even closed walk whose edges
+    alternate between the parents, starting on an A edge at its start
+    vertex and ending on a B edge back there; each edge comes from its
+    parent's side of the difference. A departure (ROADMAP "Deliberate
+    departures"): cuopt_tpu closes a walk after an A edge
+    (cuopt_tpu/routing/eax.py:101), and every cycle it returns here is
+    odd with A edges at both ends."""
     import cuopt_torch.routing.eax as TE
     import cuopt_tpu.routing.eax as JE
     from cuopt_torch.routing.construction import cheapest_insertion as tci
@@ -222,15 +223,24 @@ def test_ab_cycles_equal():
     tp = t_build(_gh40(t_vrp, 2))
     ra = tci(tp)[0]
     rb = tci(tp, rng=np.random.default_rng(1), noise=0.6)[0]
-    a = TE._ab_cycles(TE._edges(ra), TE._edges(rb),
-                      np.random.default_rng(0))
-    b = JE._ab_cycles(JE._edges(ra), JE._edges(rb),
-                      np.random.default_rng(0))
-    assert a == b and a
+    ea, eb = TE._edges(ra), TE._edges(rb)
+    a = TE._ab_cycles(ea, eb, np.random.default_rng(0))
+    assert a
+    only_a, only_b = set(ea) - set(eb), set(eb) - set(ea)
     for cyc in a:
         kinds = [from_a for _, from_a in cyc]
+        assert len(cyc) % 2 == 0 and kinds[0] and not kinds[-1]
         assert all(x != y for x, y in zip(kinds, kinds[1:]))
-        assert len(cyc) % 2 == 1 and kinds[0] and kinds[-1]
+        assert all(e in (only_a if k else only_b) for e, k in cyc)
+        (u0, v0), _ = cyc[0]
+        cur = v0
+        for (u, v), _ in cyc[1:]:
+            assert cur in (u, v)
+            cur = v if cur == u else u
+        assert cur == u0
+    b = JE._ab_cycles(JE._edges(ra), JE._edges(rb),
+                      np.random.default_rng(0))
+    assert b and all(len(c) % 2 == 1 and c[0][1] and c[-1][1] for c in b)
 
 
 def test_set_covering_child_equal():

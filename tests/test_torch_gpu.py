@@ -416,6 +416,50 @@ def test_routing_evaluators_on_card(cuda):
                                rtol=1e-5, atol=1e-3)
 
 
+def test_pd_move_scores_on_card(cuda):
+    """The carried-load path of the move evaluators (pickup-delivery
+    pairs: peaks by cummax, the 2-opt range minimum, the pair relocate)
+    on the card against the port on the CPU, from the same feasible
+    routes: the five score tensors, the insertion scores and the tiled
+    evaluation, masks equal and deltas within rtol 1e-5 / atol 1e-3."""
+    import cuopt_torch.io.vrp as vrp
+    from cuopt_torch.routing import local_search as ls
+    from cuopt_torch.routing.construction import cheapest_insertion
+    from cuopt_torch.routing.internal import build_problem
+    from cuopt_torch.routing.solver import (
+        _grouped_moves,
+        _pad_len,
+        _routes_to_arrays,
+    )
+    from torch_routing_instances import pd_mixed
+
+    prob = pd_mixed(vrp, build_problem, seed=0)
+    gpu = ls.build_ls_problem(prob, device=cuda)
+    cpu = ls.build_ls_problem(prob, device="cpu")
+    assert gpu.has_pairs
+    routes, _ = cheapest_insertion(prob, rng=np.random.default_rng(0),
+                                   noise=0.5)
+    R, lens = _routes_to_arrays(prob, routes, _pad_len(routes, headroom=4))
+
+    def close(x, y):
+        x, y = ls.to_host(x), ls.to_host(y)
+        assert np.array_equal(x >= ls.BIG / 2, y >= ls.BIG / 2)
+        np.testing.assert_allclose(x[x < ls.BIG / 2], y[y < ls.BIG / 2],
+                                   rtol=1e-5, atol=1e-3)
+
+    for x, y in zip(ls._move_scores(gpu, ls._ids(gpu, R),
+                                    ls._ids(gpu, lens)),
+                    ls._move_scores(cpu, ls._ids(cpu, R),
+                                    ls._ids(cpu, lens))):
+        close(x, y)
+    cand = np.arange(0, prob.n_serve, 2)
+    close(ls.evaluate_insertions(gpu, R, lens, cand),
+          ls.evaluate_insertions(cpu, R, lens, cand))
+    a = _grouped_moves(prob, gpu, R, lens, 0, group=4)
+    b = _grouped_moves(prob, cpu, R, lens, 0, group=4)
+    np.testing.assert_allclose(a[:, 0], b[:, 0], rtol=1e-5, atol=1e-3)
+
+
 def test_routing_solve_on_card(cuda):
     """Solve on its default device, the card: every order served once."""
     from cuopt_torch.io.vrp import synth_gh_instance

@@ -81,13 +81,23 @@ def assert_same_moves(a, b):
         assert np.sum(np.abs(a[fam, 0] - a[i, 0]) <= TIE) >= 2, (i, a[i])
 
 
+# the port's own fields: the carried load of pickup-delivery pairs
+# (a departure from cuopt_tpu, test_torch_carried_load.py)
+PORT_ONLY = ("has_pairs", "pair_next")
+
+
 @pytest.mark.parametrize("variant", GH60_VARIANTS)
 def test_ls_problem_and_route_tensors_match(variant):
     tp, tl, jp, jl, routes = _pair(variant)
     for f in ("has_tw", "allow_2opt", "has_max_cost", "has_prize"):
         assert getattr(tl, f) == getattr(jl, f), f
+    assert tl.has_pairs == (variant == "pd")
+    if tl.has_pairs:
+        want = np.where(tp.pd_sign > 0, tp.pd_partner, -1)
+        assert np.array_equal(tl.pair_next.numpy(), want)
     for f in TL.LsProblem.__dataclass_fields__:
-        if f in ("has_tw", "allow_2opt", "has_max_cost", "has_prize"):
+        if f in ("has_tw", "allow_2opt", "has_max_cost", "has_prize") + \
+                PORT_ONLY:
             continue
         a, b = _np(getattr(tl, f)), np.asarray(getattr(jl, f))
         assert a.dtype == (np.int64 if b.dtype.kind == "i" else b.dtype), f
@@ -109,7 +119,15 @@ def test_ls_problem_and_route_tensors_match(variant):
 @pytest.mark.parametrize("variant", GH60_VARIANTS)
 def test_evaluators_match(variant):
     """All seven evaluators, on routes from cuopt_tpu's cheapest
-    insertion, padded as the local search pads them."""
+    insertion, padded as the local search pads them. The "pd" variant
+    is a departure (test_torch_carried_load.py): the port holds the load
+    carried after each stop, where cuopt_tpu holds the route's net
+    demand, and moves an adjacent pickup and delivery as an Or-opt
+    segment, so there the evaluators that see it are held to the host
+    walk instead, from the port's own cheapest insertion (cuopt_tpu's
+    routes break the carried load)."""
+    if variant == "pd":
+        return _pd_evaluators_hold_the_host_walk()
     tp, tl, jp, jl, routes = _pair(variant)
     R, lens = _arrays(jp, routes, headroom=12)
     Rn, ln = np.array(R), np.array(lens)  # writable copies for torch
@@ -162,6 +180,95 @@ def test_evaluators_match(variant):
 
     assert_scores_close(TL.evaluate_prize_drops(tl, Rn, ln),
                         JL.evaluate_prize_drops(jl, R, lens))
+
+
+def _pd_evaluators_hold_the_host_walk():
+    """The "pd" case of test_evaluators_match: relocate, swap, 2-opt*,
+    the cycle gains (values, positions and slots), the vehicle
+    reassignment costs and the prize drops (no pair moves in any) equal
+    cuopt_tpu's; 2-opt, Or-opt and the insertion scores are valid exactly
+    where the host walk holds (host_move_scores) with its cost changes as
+    deltas, and a route fits a vehicle (evaluate_vehicle_reassign) where
+    its carried load does. The reductions over them (evaluate_moves,
+    evaluate_moves_topk, evaluate_insertions_best) are held to the same
+    reductions of the host's scores, a differing choice only within TIE
+    of the host's best, as against cuopt_tpu in the other variants."""
+    from cuopt_torch.routing.construction import cheapest_insertion as tci
+    from torch_routing_instances import (
+        assert_reductions_are_the_host_s,
+        carried_ok,
+        host_move_scores,
+    )
+
+    tp, tl, jp, jl, _ = _pair("pd")
+    routes, left = tci(tp)
+    assert not left
+    assert all(carried_ok(tp, v, r) for v, r in routes.items())
+    R, lens = _arrays(jp, routes, headroom=12)
+    Rn, ln = np.array(R), np.array(lens)
+    t_scores = TL._move_scores(tl, TL._ids(tl, Rn), TL._ids(tl, ln))
+    j_scores = j_move_scores(jl, R, lens)
+    for k in (0, 1, 3):
+        assert_scores_close(t_scores[k], j_scores[k])
+    cand = np.arange(0, tp.n_serve, 3)
+    L = R.shape[1]
+    reloc, swap, two, tail, oro, ins = host_move_scores(tp, routes, L, cand)
+    has = np.vectorize(lambda x: x is not None)
+    for device, host in ((t_scores[2], two), (t_scores[4], oro),
+                         (TL.evaluate_insertions(tl, Rn, ln, cand), ins)):
+        device = _np(device)
+        assert np.array_equal(device < BIG / 2, has(host))
+        np.testing.assert_allclose(device[has(host)],
+                                   host[has(host)].astype(float),
+                                   rtol=RTOL, atol=ATOL)
+    assert_reductions_are_the_host_s(
+        TL, tl, Rn, ln, cand, (reloc, swap, two, tail, oro, ins),
+        RTOL, ATOL, TIE)
+    tg = [_np(x) for x in TL.evaluate_cycle_gains(tl, Rn, ln)]
+    jg = [np.asarray(x) for x in JL.evaluate_cycle_gains(jl, R, lens)]
+    assert_scores_close(tg[0], jg[0])
+    assert np.array_equal(tg[1], jg[1]) and np.array_equal(tg[2], jg[2])
+    tc, tf = TL.evaluate_vehicle_reassign(tl, Rn, ln)
+    jc, _ = JL.evaluate_vehicle_reassign(jl, R, lens)
+    assert_scores_close(tc, jc)
+    want = np.array([[bool(routes.get(r)) and carried_ok(tp, v, routes[r])
+                      for r in range(tp.n_fleet)]
+                     for v in range(tp.n_fleet)])
+    assert np.array_equal(_np(tf), want)
+    assert_scores_close(TL.evaluate_prize_drops(tl, Rn, ln),
+                        JL.evaluate_prize_drops(jl, R, lens))
+
+
+@pytest.mark.parametrize("variant", GH60_VARIANTS)
+def test_cost_neutral_exchanges_score_zero(variant):
+    """A deliberate departure: a 2-opt* that leaves the cost as it is
+    (two empty tails, or two whole routes swapped between vehicles of
+    one start and fixed cost) scores exactly 0 in the port. cuopt_tpu's
+    float32 delta there is rounding, as low as -4e-6, below the local
+    search's -1e-7, so its local search applied such no-ops as improving
+    moves (on the "pd" variant's routes its rounding happens to give 0).
+    Elsewhere the scores are held to cuopt_tpu's in
+    test_evaluators_match."""
+    tp, tl, jp, jl, routes = _pair(variant)
+    R, lens = _arrays(jp, routes, headroom=12)
+    Rn, ln = np.array(R), np.array(lens)
+    ts = _np(TL._move_scores(tl, TL._ids(tl, Rn), TL._ids(tl, ln))[3])
+    js = np.asarray(j_move_scores(jl, R, lens)[3])
+    cut = np.arange(ts.shape[1])
+    i, k = cut[None, :, None, None], cut[None, None, None, :]
+    l4 = ln[:, None, None, None]
+    start, fixed = np.asarray(jl.veh_start), np.asarray(jl.veh_fixed)
+    same = (start[:, None] == start[None, :]) & \
+        (fixed[:, None] == fixed[None, :])
+    no_op = ((i == l4) & (k == l4.transpose(2, 1, 0, 3))) | \
+        ((i == 0) & (k == 0) & same[:, None, :, None])
+    live = no_op & (js < BIG / 2)
+    assert live.any()
+    assert np.array_equal(ts[no_op] < BIG / 2, js[no_op] < BIG / 2)
+    assert np.all(ts[live] == 0.0)
+    np.testing.assert_allclose(js[live], 0.0, atol=ATOL)
+    if variant != "pd":
+        assert (js[live] < -1e-7).any()
 
 
 def test_ties_break_by_index_as_cuopt_tpu():

@@ -94,11 +94,19 @@ NEW_PAIR = dict(
 
 def gh60_pd_table():
     """The port's route table of a 60-order pickup-delivery instance with
-    wide windows, from its cheapest insertion (deterministic), and both
-    packages' models."""
+    wide windows, made from cuopt_tpu's cheapest insertion
+    (deterministic), and both packages' models. The routes are those the
+    port made too until it held the load carried between a pickup and
+    its delivery (test_torch_carried_load.py): its own now put order 0's
+    pickup on vehicle 1, where cuopt_tpu's partial-pair lookup pins the
+    dummy to the first Depot row's vehicle (test_dummy_pickup_pinned_to_
+    carrier), so the parity cases keep these. Re-routing reads a table,
+    not its feasibility."""
+    from cuopt_tpu.routing.construction import cheapest_insertion as j_ci
+
     tdm, jdm = pd_wide(t_vrp)[1], pd_wide(j_vrp)[1]
     prob = t_build(tdm)
-    routes, unassigned = cheapest_insertion(prob)
+    routes, unassigned = j_ci(j_build(jdm))
     asg = TS._build_assignment(prob, routes, unassigned, TTimer(10.0), tdm)
     return asg.get_route(), tdm, jdm
 
@@ -211,12 +219,13 @@ def test_pinned_orders_inserted_first():
     assert all(k in jm.order_vehicle_match for k in left)
 
 
-def test_pd_capacity_holds_net_load():
-    """Open fault of both packages (ROADMAP Queue 3): route_feasible holds
-    a route's summed demand to the capacity, which for pickup-delivery
-    pairs is the net load, so a route carrying two full pairs at once
-    (twice the capacity between the pickups and the deliveries) passes
-    in both."""
+def test_pd_capacity_holds_carried_load():
+    """Departure from cuopt_tpu (ROADMAP "Deliberate departures"): the
+    port's route_feasible holds the load carried after each stop to the
+    capacity, so a route carrying two full pairs at once (twice the
+    capacity between the pickups and the deliveries) fails. cuopt_tpu
+    holds the route's summed demand, which for pairs is the net load,
+    and still accepts it."""
     def model(R):
         dm = base_model(R)
         dm.capacity_dimensions.clear()
@@ -226,7 +235,8 @@ def test_pd_capacity_holds_net_load():
     route = [0, 2, 1, 3]  # both pickups, then both deliveries
     tp, jp = t_build(model(T)), j_build(model(J))
     assert np.cumsum(tp.demand[0, route]).max() == 20.0
-    assert tp.route_feasible(0, route) and jp.route_feasible(0, route)
+    assert not tp.route_feasible(0, route) and jp.route_feasible(0, route)
+    assert tp.route_feasible(0, [0, 1, 2, 3])
 
 
 class TestReRoutingSolve:
@@ -467,6 +477,187 @@ class TestPrecedence:
         assert precedence_ok(prob, out)
         assert sorted(o for r in out.values() for o in r) == \
             sorted(o for r in start.values() for o in r)
+
+    @staticmethod
+    def _late_successor(R=T):
+        """Four orders on a line (depot 0; A at 10, B at -10, D at -11, S
+        at 11), two vehicles of capacity 10, demand 5 each, S due by 15
+        and after A. Cheapest insertion puts B, A on vehicle 0 (A at 30)
+        and D on vehicle 1, so S has no slot; the local search's first
+        move takes B to vehicle 1, and A at 10 leaves S the slot after
+        it. cuopt_tpu leaves S unserved unless a later recombination
+        happens to reinsert it."""
+        x = np.array([0.0, 10, -10, -11, 11])
+        cost = np.abs(x[:, None] - x[None])
+        dm = R.DataModel(5, 2, 4)
+        dm.add_cost_matrix(cost)
+        dm.add_transit_time_matrix(cost)
+        dm.set_order_locations([1, 2, 3, 4])
+        dm.add_capacity_dimension("w", [5, 5, 5, 5], [10, 10])
+        dm.set_order_time_windows([0, 0, 0, 0], [1000, 1000, 1000, 15])
+        dm.add_order_precedence(3, [0])
+        return dm
+
+    def test_unserved_successor_reinserted(self):
+        """Repair (ROADMAP Queue 3): construction leaves S out, the local
+        search opens a slot, and _reinsert_successors puts S at its
+        cheapest feasible place (after A on vehicle 0); every link
+        holds."""
+        import cuopt_torch.routing.local_search as TL
+        from cuopt_torch.routing.internal import precedence_ok
+
+        prob = t_build(self._late_successor())
+        routes, left = cheapest_insertion(prob)
+        assert routes == {0: [1, 0], 1: [2]} and left == [3]
+        lsp = TL.build_ls_problem(prob, device="cpu")
+        routes = TS._local_search(prob, lsp, routes, TTimer(5.0),
+                                  unserved=left)
+        assert routes == {0: [0], 1: [1, 2]}
+        out, left2 = TS._reinsert_successors(prob, routes, left,
+                                              TTimer(5.0))
+        assert out == {0: [0, 3], 1: [1, 2]} and left2 == []
+        assert precedence_ok(prob, out)
+        assert all(prob.route_feasible(v, r) for v, r in out.items())
+
+    def test_solve_serves_the_successor(self, monkeypatch):
+        """Solve on the same instance, its recombinations stubbed to hand
+        back their first parent, so that only construction, the local
+        search, GES and the repair step serve orders: S is served and
+        precedence_ok holds (without the repair step S stays out)."""
+        import cuopt_torch.routing.diversity as TD
+        from cuopt_torch.routing.internal import precedence_ok
+
+        def parent(prob, pa, *args, **kw):
+            return ({v: list(r) for v, r in pa["routes"].items()},
+                    list(pa["unassigned"]))
+
+        for name in ("srex", "ruin_recreate", "ox_single_route"):
+            monkeypatch.setattr(TD, name, parent)
+        monkeypatch.setattr(TD, "set_covering_child",
+                            lambda prob, members, rng: parent(
+                                prob, members[0]))
+        dm = self._late_successor()
+        sol = solve(dm, 1.0)
+        assert sol.get_status() == T.SolutionStatus.SUCCESS.value
+        assert sol.get_infeasible_orders() == []
+        arr = _arrivals(sol)
+        assert sorted(arr) == [0, 1, 2, 3] and arr[3] >= arr[0] - 1e-9
+        prob = t_build(dm)
+        table = sol.get_route()
+        routes = {}
+        for v, o, kind in zip(table["truck_id"], table["route"],
+                              table["type"]):
+            if kind != "Depot":
+                routes.setdefault(int(v), []).append(int(o))
+        assert precedence_ok(prob, routes)
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_reinsertion_breaks_no_link(self, seed):
+        """Seeded chains of three on GH60 (with its windows): from
+        cheapest insertion's routes, repaired and searched as Solve does
+        first, the repair step serves what it can; every link holds,
+        every route is feasible, and each order is served once or listed
+        unserved."""
+        import cuopt_torch.routing.local_search as TL
+        from cuopt_torch.routing.internal import precedence_ok
+
+        inst, dm = gh60(t_vrp, "tw")
+        rng = np.random.default_rng(seed)
+        for a, b, c in rng.choice(60, (8, 3), replace=False):
+            a, b, c = sorted((a, b, c),
+                             key=lambda o: (inst.tw_early[o + 1], o))
+            dm.add_order_precedence(int(b), [int(a)])
+            dm.add_order_precedence(int(c), [int(b)])
+        prob = t_build(dm)
+        routes, left = TS._enforce_precedence(
+            prob, *cheapest_insertion(prob), np.random.default_rng(seed))
+        lsp = TL.build_ls_problem(prob, device="cpu")
+        routes = TS._local_search(prob, lsp, routes, TTimer(3.0),
+                                  unserved=left)
+        assert precedence_ok(prob, routes, left) and left
+        out, left2 = TS._reinsert_successors(prob, routes, left,
+                                              TTimer(5.0))
+        assert set(left2) <= set(left)
+        assert precedence_ok(prob, out, left2)
+        assert all(prob.route_feasible(v, r) for v, r in out.items() if r)
+        served = sorted(o for r in out.values() for o in r)
+        assert sorted(served + left2) == list(range(prob.n_serve))
+
+    @staticmethod
+    def _chains(seed):
+        """GH60 with its windows and eight seeded chains of three, the
+        problem and cheapest insertion's routes."""
+        inst, dm = gh60(t_vrp, "tw")
+        rng = np.random.default_rng(seed)
+        for a, b, c in rng.choice(60, (8, 3), replace=False):
+            a, b, c = sorted((a, b, c),
+                             key=lambda o: (inst.tw_early[o + 1], o))
+            dm.add_order_precedence(int(b), [int(a)])
+            dm.add_order_precedence(int(c), [int(b)])
+        prob = t_build(dm)
+        return prob, cheapest_insertion(prob)[0]
+
+    @pytest.mark.parametrize("seed", range(2))
+    def test_reinsert_memo_changes_nothing(self, seed, monkeypatch):
+        """greedy_reinsert (ruin & recreate, with noise) gives the same
+        routes with its scan memo as without; a second call on the same
+        routes reads every scan from the memo (no route_feasible call),
+        and a changed route is scanned again."""
+        from cuopt_torch.routing import construction as TC
+
+        prob, routes = self._chains(seed)
+        served = [o for r in routes.values() for o in r]
+        removed = [int(o) for o in np.random.default_rng(seed).choice(
+            served, 12, replace=False)]
+        ruined = {v: [o for o in r if o not in removed]
+                  for v, r in routes.items()}
+
+        def run(memo):
+            return TC.greedy_reinsert(
+                prob, {v: list(r) for v, r in ruined.items()}, removed,
+                np.random.default_rng(seed), memo=memo)
+
+        memo = {}
+        plain = run(None)
+        assert run(memo) == plain and memo
+        calls = []
+        feasible = prob.route_feasible
+        monkeypatch.setattr(prob, "route_feasible",
+                            lambda v, r: calls.append(v) or feasible(v, r))
+        assert run(memo) == plain and calls == []
+        v = next(v for v, r in ruined.items() if r)
+        ruined[v] = ruined[v][1:]
+        run(memo)
+        assert calls
+
+    def test_reinsert_stops_on_its_timer(self):
+        """With its timer expired, greedy_reinsert places nothing: every
+        removed order comes back left out."""
+        from cuopt_torch.routing.construction import greedy_reinsert
+
+        prob, routes = self._chains(0)
+        removed = sorted(routes[0])
+        ruined = {v: ([] if v == 0 else list(r)) for v, r in routes.items()}
+        out, left = greedy_reinsert(prob, ruined, removed, noise=0.0,
+                                    timer=TTimer(0.0))
+        assert out == ruined and sorted(left) == removed
+
+    def test_reinsert_keeps_an_unserved_predecessor_s_successor_out(self):
+        """An order whose predecessor is not served stays out of
+        greedy_reinsert (insert_precedence_ok passes over an unserved
+        predecessor; precedence_ok does not): on _late_successor's
+        routes without A, S is left out and every link holds."""
+        from cuopt_torch.routing.construction import greedy_reinsert
+        from cuopt_torch.routing.internal import precedence_ok
+
+        prob = t_build(self._late_successor())
+        out, left = greedy_reinsert(prob, {0: [], 1: [1, 2]}, [3],
+                                    noise=0.0)
+        assert out == {0: [], 1: [1, 2]} and left == [3]
+        assert precedence_ok(prob, out)
+        out, left = greedy_reinsert(prob, {0: [0], 1: [1, 2]}, [3],
+                                    noise=0.0)
+        assert out == {0: [0, 3], 1: [1, 2]} and left == []
 
     def test_circular_precedence_rejected(self):
         dm = _precedence_instance()

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-pytest.importorskip("jax")
+jax = pytest.importorskip("jax")
 
 import cuopt_torch.io.vrp as t_vrp  # noqa: E402
 import cuopt_torch.routing.construction as TC  # noqa: E402
@@ -64,7 +64,24 @@ def _routes(routes):
 
 @pytest.mark.parametrize("variant", ["tw", "pd", "max-cost-time"])
 def test_cheapest_insertion_matches(variant):
+    """The same routes as cuopt_tpu's. "pd" is a departure: the port holds
+    the load carried after each stop to the capacity, cuopt_tpu the
+    route's net demand (test_torch_carried_load.py), so there the port's
+    routes are held to the host walk and cuopt_tpu's break it; with a
+    capacity that no carried load can exceed, both match."""
     tp, jp = _problems(variant)
+    if variant == "pd":
+        from torch_routing_instances import carried_ok
+
+        routes, left = TC.cheapest_insertion(tp)
+        served = sorted(o for r in routes.values() for o in r)
+        assert not left and served == list(range(tp.n_serve))
+        assert all(carried_ok(tp, v, r) and tp.route_feasible(v, r)
+                   for v, r in routes.items() if r)
+        j_routes = JC.cheapest_insertion(jp)[0]
+        assert not all(carried_ok(tp, v, r) for v, r in j_routes.items())
+        roomy = float(np.clip(tp.demand, 0, None).sum())
+        tp.capacity[:] = jp.capacity[:] = roomy
     a, b = TC.cheapest_insertion(tp), JC.cheapest_insertion(jp)
     assert _routes(a[0]) == _routes(b[0]) and a[1] == b[1]
     if variant != "tw":
@@ -84,10 +101,49 @@ def test_batched_construction_matches(variant):
     assert sum(map(len, a[0].values())) + len(a[1]) == tp.n_serve
 
 
+_j_move_scores = jax.jit(JL._move_scores)
+
+
+def _j_topk_cost_neutral_zero(p, R, lens, kf=8):
+    """cuopt_tpu's evaluate_moves_topk under the port's 2-opt* rule (a
+    deliberate departure): an exchange that leaves the cost as it is
+    (two empty tails, or two whole routes swapped between vehicles of one
+    start and fixed cost) scores 0, where float32 rounding scored it as
+    low as -2e-6 and the local search applied it as improving. The
+    families' kf smallest entries, ties to the lower index, packed as
+    cuopt_tpu packs them."""
+    scores = [np.array(s) for s in _j_move_scores(p, R, lens)]
+    ln = np.asarray(lens)[:, None, None, None]
+    cut = np.arange(scores[3].shape[1])
+    i, k = cut[None, :, None, None], cut[None, None, None, :]
+    start, fixed = np.asarray(p.veh_start), np.asarray(p.veh_fixed)
+    same = (start[:, None] == start[None, :]) & \
+        (fixed[:, None] == fixed[None, :])
+    no_op = ((i == ln) & (k == ln.transpose(2, 1, 0, 3))) | \
+        ((i == 0) & (k == 0) & same[:, None, :, None])
+    scores[3] = np.where(no_op & (scores[3] < JL.BIG / 2), 0.0, scores[3])
+    rows = []
+    for kind, score in enumerate(scores):
+        flat = np.concatenate([score.ravel(),
+                               np.full(kf, JL.BIG, score.dtype)])
+        idx = np.argsort(flat, kind="stable")[:kf]
+        args = np.unravel_index(np.minimum(idx, score.size - 1), score.shape)
+        mv = np.stack([args[0], args[1], args[0], args[2]] if kind == 2
+                      else list(args), axis=1)
+        rows.append(np.concatenate([flat[idx, None], np.full((kf, 1), kind),
+                                    mv], axis=1).astype(np.float32))
+    return np.concatenate(rows)
+
+
 @pytest.mark.parametrize("variant", ["tw", "no-tw", "hetero"])
-def test_local_search_matches(variant):
+def test_local_search_matches(variant, monkeypatch):
     """Five rounds from cuopt_tpu's cheapest insertion: the same routes,
-    and the cost goes down."""
+    and the cost goes down. cuopt_tpu's local search proposes its moves
+    under the port's 2-opt* rule for cost-neutral exchanges
+    (_j_topk_cost_neutral_zero): with its own, it applies such a no-op
+    in a round and so blocks the two routes from that round's other
+    moves."""
+    monkeypatch.setattr(JL, "evaluate_moves_topk", _j_topk_cost_neutral_zero)
     tp, jp = _problems(variant)
     start, _ = JC.cheapest_insertion(jp)
     a = TS._local_search(tp, tp._lsp_cache, dict(start), TTimer(60.0),
@@ -108,11 +164,13 @@ def test_local_search_keeps_pickup_before_delivery():
     does for breaks or max cost, and every route stays feasible. The
     device scores do not see a pair inside a reversed segment;
     cuopt_tpu applies such a 2-opt unchecked and delivers before picking
-    up (its routes fail the same host check)."""
+    up (its routes fail the same host check). Both start from the port's
+    cheapest insertion: cuopt_tpu's routes carry more than the capacity
+    between a pickup and its delivery (test_torch_carried_load.py)."""
     tp, jp = _problems("pd")
     assert tp._lsp_cache.allow_2opt
-    start, _ = JC.cheapest_insertion(jp)
-    assert all(jp.route_feasible(v, r) for v, r in start.items() if r)
+    start, _ = TC.cheapest_insertion(tp)
+    assert all(tp.route_feasible(v, r) for v, r in start.items() if r)
     a = TS._local_search(tp, tp._lsp_cache, dict(start), TTimer(60.0),
                          max_rounds=5)
     b = JS._local_search(jp, jp._lsp_cache, dict(start), JTimer(60.0),
@@ -164,13 +222,22 @@ def test_children_match(name, gh400):
     """Each recombination / mutation with seed 11 gives the same child.
     At 400 orders with about 40 vehicles the reinsertion after removal
     and the insertion scan take the device-batched paths
-    (smart_reinsert, _device_insertion_prefilter)."""
+    (smart_reinsert, _device_insertion_prefilter). EAX is a departure:
+    the port's AB-cycles close on a B edge and cuopt_tpu's after an A
+    edge (test_torch_cycle_finder.py), so its child is checked on the
+    host instead: every order once, every route feasible."""
     tp, (ta, tb), jp, (ja, jb) = gh400
     ta, tb, ja, jb = map(_copy, (ta, tb, ja, jb))
     assert _routes(ta["routes"]) == _routes(ja["routes"])
     assert _routes(tb["routes"]) == _routes(jb["routes"])
     if name == "eax":
         assert TE.eax_applicable(tp)
+        routes, left = OPERATORS[name](T_MODS, tp, ta, tb,
+                                       np.random.default_rng(11))
+        served = [o for r in routes.values() for o in r]
+        assert sorted(served + list(left)) == list(range(tp.n_serve))
+        assert all(tp.route_feasible(v, r) for v, r in routes.items() if r)
+        return
     a = OPERATORS[name](T_MODS, tp, ta, tb, np.random.default_rng(11))
     b = OPERATORS[name](J_MODS, jp, ja, jb, np.random.default_rng(11))
     assert (a is None) == (b is None)

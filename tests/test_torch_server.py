@@ -14,6 +14,8 @@
   request flows, the thin client and cuopt_sh.
 - The job queue's watchdog with a stub worker that crashes, and the
   refusal to solve without a card.
+- Readiness, a departure: /v2/health/ready answers 503 until a worker
+  has passed its start-up health check (cuopt_tpu answers 200 at once).
 Every wait has its own deadline.
 """
 
@@ -472,7 +474,6 @@ def _submit(base, payload, ctype="application/json"):
 # cuopt_tpu's webserver (cuopt_tpu/server/webserver.py) answers, by line
 REQUESTS = [
     ("health", "GET", "/cuopt/health", None, None, {}, 200),      # :87
-    ("ready", "GET", "/v2/health/ready", None, None, {}, 200),    # :90
     ("live", "GET", "/v2/health/live", None, None, {}, 200),      # :93
     ("billing", "GET", "/cuopt/billing", None, None, {}, 200),    # :84
     ("submit-lp", "POST", "/cuopt/request", LP_PAYLOAD,
@@ -532,6 +533,19 @@ def test_status_codes_equal_cuopt_tpu(server, name, method, path, body,
     status, _ = http(server, method, path, body,
                      ctype or "application/json", headers)
     assert status == want
+
+
+def test_ready_on_the_server(server):
+    """The "ready" row of cuopt_tpu's table (webserver.py:90 answers 200
+    at once) is a departure: the port's ready waits for the CPU worker's
+    health check, then answers 200; live and health answer 200 all along
+    (test_ready_waits_for_a_worker sees the 503)."""
+    assert http(server, "GET", "/v2/health/live")[0] == 200
+    end = time.monotonic() + DEADLINE
+    while http(server, "GET", "/v2/health/ready")[0] != 200:
+        assert http(server, "GET", "/cuopt/health")[0] == 200
+        assert time.monotonic() < end, "the worker never became ready"
+        time.sleep(0.1)
 
 
 def test_delete_solution(server):
@@ -713,6 +727,80 @@ def test_worker_crash_is_an_error_and_the_worker_respawns(monkeypatch):
     finally:
         jq.shutdown()
     assert not any(p.is_alive() for p in jq.procs)
+
+
+def _get(routes, path):
+    """The status the webserver's handler answers a GET of `path` with."""
+    handler, args = routes.dispatch("GET", path)
+    return handler(None, **args)[0]
+
+
+def _ready(routes):
+    return _get(routes, "/v2/health/ready")
+
+
+def _live(routes):
+    return [_get(routes, p) for p in ("/v2/health/live", "/cuopt/health")]
+
+
+def test_ready_waits_for_a_worker(monkeypatch):
+    """The stub worker reports ready a second after it starts: ready
+    answers 503 before the queue starts and right after, 200 once the
+    worker has reported, 503 again while the watchdog's respawn of a
+    crashed worker starts, then 200. Live and health answer 200
+    throughout."""
+    from cuopt_torch.server.webserver import Routes
+    from torch_server_stub import crashing_worker
+
+    monkeypatch.setenv("CUOPT_TORCH_DEVICE", "cpu")
+    jq = JobQueue(1, worker=crashing_worker)
+    routes = Routes(jq)
+    try:
+        assert _ready(routes) == 503 and _live(routes) == [200, 200]
+        jq.start()
+        assert _ready(routes) == 503 and _live(routes) == [200, 200]
+
+        def wait_ready():
+            end = time.monotonic() + DEADLINE
+            while _ready(routes) != 200:
+                assert time.monotonic() < end, "no worker became ready"
+                time.sleep(0.05)
+
+        wait_ready()
+        crash = jq.submit("lp", {"crash": True})
+        assert _wait_status(jq, crash, ("error", "done"))["status"] == \
+            "error"
+        assert _ready(routes) == 503 and _live(routes) == [200, 200]
+        wait_ready()
+        ok = jq.submit("lp", {"n": 1})
+        assert _wait_status(jq, ok, ("error", "done"))["status"] == "done"
+    finally:
+        jq.shutdown()
+
+
+def test_ready_never_after_a_failed_health_check(monkeypatch):
+    """worker_main on a device whose health check fails posts no ready:
+    ready stays 503 with the worker alive, and the check's error still
+    comes with the first job, as before."""
+    from cuopt_torch.server.webserver import Routes
+    from torch_server_stub import unhealthy_worker
+
+    monkeypatch.setenv("CUOPT_TORCH_DEVICE", "cpu")
+    jq = JobQueue(1, worker=unhealthy_worker)
+    routes = Routes(jq)
+    jq.start()
+    try:
+        req_id = jq.submit("lp", _dual_simplex(LP_PAYLOAD))
+        res = _wait_status(jq, req_id, ("error", "done"))
+        assert res["status"] == "error"
+        assert "device health check failed on no-such-device" in \
+            res["error"]
+        time.sleep(0.5)  # the collector has read all the worker posted
+        assert jq.procs[0].is_alive()
+        assert _ready(routes) == 503 and not jq.ready_pids
+        assert _live(routes) == [200, 200]
+    finally:
+        jq.shutdown()
 
 
 def test_workers_get_their_devices(monkeypatch):
