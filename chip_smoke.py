@@ -146,7 +146,16 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      the 7 of the run before the repair step, with the diversity loop's
      children); the twelve binaries built
      field by field without names, a column fixed by its bounds, by
-     solve_mip at the named problem's optimum. No row-pass launch.
+     solve_mip at the named problem's optimum. No row-pass launch;
+  21. the port's benches, each a process of its own: `python3
+     bench_torch.py` (the 50k staircase and its shuffled copy, 2 + 40
+     majors each) must exit 0 with the metric
+     pdhg_iters_per_s_synth50k_geomean, finite steps/s and
+     row_pass_atomic launched on both instances (its line is logged, its
+     launches stand in the kernels line as "bench_launches"); and
+     `scripts/torch_bks_benchmark.py --instances GHC_200_1 --time-limit
+     10` must give status 0 with every order served once and the routes
+     kept on the host.
 
 The last two lines are one JSON object with every kernel's launches,
 error and times, and the contract line
@@ -3112,6 +3121,46 @@ def phase_parity(device="cuda"):
     log(f"[phase20] wall {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------ phase 21
+def _run_bench(name, args, timeout):
+    """Run a bench script of the port as a process from the checkout's
+    root; returns its last line as JSON after requiring exit code 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"{name}: exit {out.returncode}: {out.stderr[-2000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    log(f"[bench] {name}: {wall:.1f} s: {line}")
+    return json.loads(line)
+
+
+def phase_benches():
+    """Phase 21: bench_torch.py and the routing bench on GHC_200_1, as a
+    user runs them. Returns bench_torch's launches per kernel, summed
+    over its two instances."""
+    import math
+
+    line = _run_bench("bench_torch.py", ["bench_torch.py"], 600)
+    require(line["metric"] == "pdhg_iters_per_s_synth50k_geomean",
+            f"bench_torch.py: metric {line['metric']}")
+    d = line["detail"]
+    for k in ("staircase_iters_per_s", "shuffled_unstructured_iters_per_s"):
+        require(math.isfinite(d[k]) and d[k] > 0, f"bench_torch.py: {k}")
+    for inst, counts in d["launches"].items():
+        require(counts["row_pass_atomic"] > 0,
+                f"bench_torch.py: {inst} never launched row_pass_atomic")
+    bks = _run_bench("torch_bks_benchmark.py GHC_200_1", [
+        "scripts/torch_bks_benchmark.py", "--instances", "GHC_200_1",
+        "--time-limit", "10"], 300)
+    require(bks["solved"] == bks["total"] == 1,
+            "torch_bks_benchmark.py: GHC_200_1 not solved with every "
+            "order once and its routes kept")
+    return Counter({k: sum(c[k] for c in d["launches"].values())
+                    for k in next(iter(d["launches"].values()))})
+
+
 def main() -> int:
     import torch
 
@@ -3251,6 +3300,11 @@ def main() -> int:
     require(all(k.launches == before[k.name] for k in pf.KERNELS),
             "phase 20 launched a row-pass kernel")
 
+    # phase 21: the benches, in processes of their own with their own
+    # counts
+    bench_launches = phase_benches()
+    log(f"[phase21] done at {time.perf_counter() - t_start:.1f} s")
+
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",
                 "row_pass_partials": "staircase-300k"}
@@ -3261,6 +3315,7 @@ def main() -> int:
             "name": k.name, "route": "cuda",
             "source": f"cuopt_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": total[k.name],
+            "bench_launches": bench_launches[k.name],
             "shape": shape_of[k.name],
             **rec,
             # the same kernel at the main path's widest window

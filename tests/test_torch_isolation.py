@@ -24,10 +24,16 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "cuopt_tpu")
 _NOT_ON_THE_CARD = ("aiohttp", "pydantic", "msgpack", "requests", "pandas")
 
 
+def _benches():
+    """The port's measuring code: bench_torch.py and scripts/torch_*.py."""
+    return [ROOT / "bench_torch.py",
+            *sorted((ROOT / "scripts").glob("torch_*.py"))]
+
+
 def _sources():
     files = sorted((ROOT / "cuopt_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    return files
+    return files + _benches()
 
 
 def _imported_modules(path):
@@ -51,6 +57,23 @@ def test_no_jax_or_cuopt_tpu_imports():
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m and m.split(".")[0] in _FORBIDDEN]
+    assert not bad, bad
+
+
+def test_benches_import_no_reference_script():
+    """The port's benches import the standard library, torch, numpy,
+    cuopt_torch and each other, never bench.py or a reference script
+    under scripts/ (whose helpers they copy)."""
+    benches = _benches()
+    assert len(benches) >= 11
+    ours = {p.stem for p in benches}
+    reference = {p.stem for p in (ROOT / "scripts").glob("*.py")} - ours
+    assert "bks_benchmark" in reference
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+                                               "cuopt_torch"} | ours
+    bad = [(f.name, m) for f in benches for m in _imported_modules(f)
+           if m and (m.split(".")[0] not in allowed
+                     or m.split(".")[-1] in reference | {"bench"})]
     assert not bad, bad
 
 
