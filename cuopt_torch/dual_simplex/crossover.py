@@ -22,9 +22,9 @@ from cuopt_torch.utils.logger import get_logger
 # what the vertex result keeps of the PDLP run: its steps and attempts
 # (cuopt_tpu keeps the steps only), its timing split and its warm-start
 # state
-_PDLP_KEYS = ("iterations", "attempts", "compile_s", "solve_loop_s",
-              "loop_steps", "loop_attempts", "warm_start_data",
-              "warm_start_data_fn")
+_PDLP_KEYS = ("iterations", "attempts", "compile_s", "build_s",
+              "solve_loop_s", "loop_steps", "loop_attempts",
+              "warm_start_data", "warm_start_data_fn")
 
 
 def crossover(prob, pdlp_raw, settings, timer):

@@ -384,8 +384,12 @@ def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
     while True:
         cand, valid, eta_next = _attempt(dev, s, cfg, grad, eta, attempts)
         attempts += 1
+        if attempts >= cfg.max_step_attempts:
+            break
         # one device sync per attempt (see module docstring)
-        if attempts >= cfg.max_step_attempts or bool(valid):
+        with trace_scope("pdlp_step_sync"):
+            accepted = bool(valid)
+        if accepted:
             break
         eta = eta_next
     debug_assert(eta_next > 0.0, "PDHG step size must stay positive")
@@ -853,14 +857,15 @@ def _build_device_problem_uncached(prob, hp, dtype, operator_kind, device):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=device)
 
-    v = dict(
-        c_orig=t(sign * prob.objective_coefficients),
-        lv_orig=t(prob.variable_lower_bounds),
-        uv_orig=t(prob.variable_upper_bounds),
-        lc_orig=t(prob.constraint_lower_bounds),
-        uc_orig=t(prob.constraint_upper_bounds),
-    )
-    offset = t(sign * prob.objective_offset)
+    with trace_scope("device_upload"):
+        v = dict(
+            c_orig=t(sign * prob.objective_coefficients),
+            lv_orig=t(prob.variable_lower_bounds),
+            uv_orig=t(prob.variable_upper_bounds),
+            lc_orig=t(prob.constraint_lower_bounds),
+            uc_orig=t(prob.constraint_upper_bounds),
+        )
+        offset = t(sign * prob.objective_offset)
 
     op0 = build_operator(prob.offsets, prob.indices, prob.values, n, m,
                          dtype=dtype, kind=operator_kind, device=device)
@@ -879,9 +884,10 @@ def _build_device_problem_uncached(prob, hp, dtype, operator_kind, device):
             v[k] = v[k][perms["row_perm"]]
     v.update(_finite_parts(v))
 
-    op, row_scale, col_scale = compute_scaling(
-        op0, v["lc_fin"], v["uc_fin"], v["lc0_orig"], v["uc0_orig"], hp,
-        dtype)
+    with trace_scope("pdlp_scaling"):
+        op, row_scale, col_scale = compute_scaling(
+            op0, v["lc_fin"], v["uc_fin"], v["lc0_orig"], v["uc0_orig"],
+            hp, dtype)
     # scaled vectors: c' = C c; l_c' = R l_c; l_v' = l_v / C
     c = v["c_orig"] * col_scale
     lc = v["lc_orig"] * row_scale
@@ -1020,6 +1026,12 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def _stopped() -> dict:
+    """The raw result of a run that `stop` ended before its first major."""
+    return {"status": C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT,
+            "iterations": 0, "attempts": 0}
+
+
 # per-major scalars read back in ONE transfer (see PdlpSolver.run)
 _SCALAR_KEYS = ("opt_cur", "opt_avg", "numerical_error", "total_steps",
                 "total_attempts", "primal_infeasible", "dual_infeasible")
@@ -1074,23 +1086,26 @@ class PdlpSolver:
         CONCURRENT_LIMIT (the concurrent race's halt,
         dual_simplex/concurrent.py); stopped before the first major, the
         result holds only the status and 0 iterations."""
-        stopped = {"status": C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT,
-                   "iterations": 0, "attempts": 0}
         if stop is not None and stop():
-            return stopped
+            return _stopped()
         maybe_start_profile()
+        with trace_scope("pdlp_run"):
+            return self._run(timer or Timer(self.settings.time_limit), stop)
+
+    def _run(self, timer: Timer, stop):
         settings = self.settings
         prob = self.prob
-        timer = timer or Timer(settings.time_limit)
         major_fn = make_major_fn(self.cfg)
         t_run0 = time.perf_counter()
-        dev = build_device_problem(prob, self.hp, self.dtype,
-                                   settings.operator_kind, self.device)
+        with trace_scope("pdlp_build"):
+            dev = build_device_problem(prob, self.hp, self.dtype,
+                                       settings.operator_kind, self.device)
+        build_s = time.perf_counter() - t_run0
         if stop is not None and self.device.type == "cuda" and \
                 _use_fused(dev, self.dtype, self.cfg):
             BUILDER.library(ROW_PASS_ATOMIC.source)  # nvcc on a cold start
             if stop():
-                return stopped
+                return _stopped()
         if settings.warm_start_data is not None:
             from cuopt_torch.lp.warm_start import restore_state
 
@@ -1127,10 +1142,11 @@ class PdlpSolver:
         while True:
             state, report = major_fn(run_dev, state)
             # ONE device->host transfer for all per-major scalars
-            packed = _np(torch.stack(
-                [report[k].to(torch.float64) for k in _SCALAR_KEYS]
-                + [report["info_cur"][k].to(torch.float64)
-                   for k in _INFO_KEYS]))
+            with trace_scope("pdlp_major_readback"):
+                packed = _np(torch.stack(
+                    [report[k].to(torch.float64) for k in _SCALAR_KEYS]
+                    + [report["info_cur"][k].to(torch.float64)
+                       for k in _INFO_KEYS]))
             (f_opt_cur, f_opt_avg, f_num, f_steps, f_attempts, f_pinf,
              f_dinf, v_pobj, v_dobj, v_gap, v_rp, v_rd) = packed
             opt_cur, opt_avg = bool(f_opt_cur), bool(f_opt_avg)
@@ -1199,37 +1215,56 @@ class PdlpSolver:
             if stop is not None and stop():
                 status = C.CUOPT_TERIMINATION_STATUS_CONCURRENT_LIMIT
                 break
-        which = "avg" if use_avg else "cur"
-        info = {k: float(v) for k, v in report[f"info_{which}"].items()}
-        sol = {
-            "status": status,
-            "iterations": it,
-            "attempts": attempts,
-            "solve_time": timer.elapsed(),
-            "primal_solution": _np(report[f"x_{which}"]),
-            "dual_solution": _np(report[f"y_{which}"]),
-            "reduced_cost": _np(report[f"reduced_cost_{which}"]),
-            "primal_objective": info["primal_obj"],
-            "dual_objective": info["dual_obj"],
-            "gap": info["gap"],
-            "l2_primal_residual": info["l2_primal_res"],
-            "l2_dual_residual": info["l2_dual_res"],
-            "linf_primal_residual": info["linf_primal_res"],
-            "linf_dual_residual": info["linf_dual_res"],
-            # time to the first major's return = problem build + the first
-            # major (kernel build included); the iteration loop is the rest
-            "compile_s": round(t_first_major, 4),
-            "solve_loop_s": round(
-                max(time.perf_counter() - t_run0 - t_first_major, 0.0), 4),
-            "loop_steps": it - it0,
-            "loop_attempts": attempts - attempts0,
-        }
+        with trace_scope("pdlp_answer"):
+            which = "avg" if use_avg else "cur"
+            info = {k: float(v) for k, v in report[f"info_{which}"].items()}
+            sol = {
+                "status": status,
+                "iterations": it,
+                "attempts": attempts,
+                "solve_time": timer.elapsed(),
+                "primal_solution": _np(report[f"x_{which}"]),
+                "dual_solution": _np(report[f"y_{which}"]),
+                "reduced_cost": _np(report[f"reduced_cost_{which}"]),
+                "primal_objective": info["primal_obj"],
+                "dual_objective": info["dual_obj"],
+                "gap": info["gap"],
+                "l2_primal_residual": info["l2_primal_res"],
+                "l2_dual_residual": info["l2_dual_res"],
+                "linf_primal_residual": info["linf_primal_res"],
+                "linf_dual_residual": info["linf_dual_res"],
+                # time to the first major's return = problem build + the first
+                # major (kernel build included); the iteration loop is the rest
+                "compile_s": round(t_first_major, 4),
+                # the device problem's build alone, inside compile_s
+                "build_s": round(build_s, 4),
+                "solve_loop_s": round(
+                    max(time.perf_counter() - t_run0 - t_first_major, 0.0), 4),
+                "loop_steps": it - it0,
+                "loop_attempts": attempts - attempts0,
+            }
+            if settings.save_best_primal_so_far and best_primal is not None \
+                    and best_primal[0] < sol["primal_objective"]:
+                sol["primal_solution"] = best_primal[1]
+                sol["primal_objective"] = best_primal[0]
+            # solution vectors live in permuted space when the operator was
+            # bandwidth-reordered: gather back to user order (the warm-start
+            # data stays in permuted space: it is restored against the same
+            # deterministic permutation of the same matrix)
+            if dev.inv_col_perm is not None:
+                inv_cp = _np(dev.inv_col_perm)
+                inv_rp = _np(dev.inv_row_perm)
+                sol["primal_solution"] = sol["primal_solution"][inv_cp]
+                sol["dual_solution"] = sol["dual_solution"][inv_rp]
+                sol["reduced_cost"] = sol["reduced_cost"][inv_cp]
+            # undo the minimize transform for maximize problems
+            if prob.maximize:
+                sol["primal_objective"] = -sol["primal_objective"]
+                sol["dual_objective"] = -sol["dual_objective"]
+                sol["dual_solution"] = -sol["dual_solution"]
+                sol["reduced_cost"] = -sol["reduced_cost"]
         if self.mesh is not None:
             state = gather_state(state)
-        if settings.save_best_primal_so_far and best_primal is not None \
-                and best_primal[0] < sol["primal_objective"]:
-            sol["primal_solution"] = best_primal[1]
-            sol["primal_objective"] = best_primal[0]
         # the full internal state for re-solves (reference pdlp.cu:470-488),
         # captured lazily: it copies ten vectors off the device and most
         # solves never use it (Solution.get_pdlp_warm_start_data). The
@@ -1243,20 +1278,4 @@ class PdlpSolver:
             return capture_warm_start(scales, state)
 
         sol["warm_start_data_fn"] = _lazy_warm_start
-        # solution vectors live in permuted space when the operator was
-        # bandwidth-reordered: gather back to user order (the warm-start
-        # data stays in permuted space: it is restored against the same
-        # deterministic permutation of the same matrix)
-        if dev.inv_col_perm is not None:
-            inv_cp = _np(dev.inv_col_perm)
-            inv_rp = _np(dev.inv_row_perm)
-            sol["primal_solution"] = sol["primal_solution"][inv_cp]
-            sol["dual_solution"] = sol["dual_solution"][inv_rp]
-            sol["reduced_cost"] = sol["reduced_cost"][inv_cp]
-        # undo the minimize transform for maximize problems
-        if prob.maximize:
-            sol["primal_objective"] = -sol["primal_objective"]
-            sol["dual_objective"] = -sol["dual_objective"]
-            sol["dual_solution"] = -sol["dual_solution"]
-            sol["reduced_cost"] = -sol["reduced_cost"]
         return sol

@@ -5,7 +5,9 @@ Mirrors the reference `optimization_problem_solution_t`
 enum :37) and the Python `Solution` wrapper
 (python/cuopt/cuopt/linear_programming/solution/solution.py). Besides the
 reference's keys, the termination information carries the port's timing
-split (compile_s, solve_loop_s, loop_steps, loop_attempts), a crossover's
+split (compile_s: the device problem's build plus the first major;
+build_s: the build alone, inside compile_s; solve_loop_s, loop_steps,
+loop_attempts: the majors after the first), a crossover's
 pivots, the concurrent race's record ("race") and, when the PDLP leg of a
 race failed, its error ("pdlp_error"). A MIP solve adds its node count,
 gap and bound, the errors its heuristics caught ("heuristic_errors"), the
@@ -80,7 +82,8 @@ class Solution:
             "l2_primal_residual", "l2_dual_residual",
             "linf_primal_residual", "linf_dual_residual",
             "iterations", "attempts", "solve_time", "solved_by",
-            "compile_s", "solve_loop_s", "loop_steps", "loop_attempts",
+            "compile_s", "build_s", "solve_loop_s", "loop_steps",
+            "loop_attempts",
             "crossover_iterations", "crossover_status", "race",
             "pdlp_error",
             "nodes", "mip_gap", "solution_bound", "heuristic_errors",

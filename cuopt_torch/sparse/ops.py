@@ -29,6 +29,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from cuopt_torch.utils.tracing import trace_scope
+
 
 def _np_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
@@ -1015,31 +1017,33 @@ def build_block_band(offsets, indices, values, n_rows, n_cols, dtype,
     """Build a BlockBandOp, or None when the matrix has no usable band
     structure (window blow-up guard in _band_slabs)."""
     np_dtype = _np_dtype(dtype)
-    row = _band_slabs(offsets, indices, values, n_rows, n_cols, tile,
-                      np_dtype, spill_frac)
-    if row is None:
-        return None
-    t_offsets, t_indices, t_values, _ = _transpose_csr(
-        offsets, indices, values, n_rows, n_cols
-    )
-    col = _band_slabs(t_offsets, t_indices, t_values, n_cols, n_rows,
-                      tile, np_dtype, spill_frac)
-    if col is None:
-        return None
+    with trace_scope("sparse_band_layout"):
+        row = _band_slabs(offsets, indices, values, n_rows, n_cols, tile,
+                          np_dtype, spill_frac)
+        if row is None:
+            return None
+        t_offsets, t_indices, t_values, _ = _transpose_csr(
+            offsets, indices, values, n_rows, n_cols
+        )
+        col = _band_slabs(t_offsets, t_indices, t_values, n_cols, n_rows,
+                          tile, np_dtype, spill_frac)
+        if col is None:
+            return None
     row_slabs, row_starts, w_row, (sv, sr, sc) = row
     col_slabs, col_starts, w_col, (tv, tr, tc) = col
 
     def t(a):
         return torch.as_tensor(a, device=device)
 
-    return BlockBandOp(
-        n_rows=n_rows, n_cols=n_cols, tile=tile,
-        w_row=w_row, w_col=w_col,
-        row_starts=row_starts, col_starts=col_starts,
-        row_slabs=t(row_slabs), col_slabs=t(col_slabs),
-        spill_vals=t(sv), spill_rows=t(sr), spill_cols=t(sc),
-        t_spill_vals=t(tv), t_spill_rows=t(tr), t_spill_cols=t(tc),
-    )
+    with trace_scope("device_upload"):
+        return BlockBandOp(
+            n_rows=n_rows, n_cols=n_cols, tile=tile,
+            w_row=w_row, w_col=w_col,
+            row_starts=row_starts, col_starts=col_starts,
+            row_slabs=t(row_slabs), col_slabs=t(col_slabs),
+            spill_vals=t(sv), spill_rows=t(sr), spill_cols=t(sc),
+            t_spill_vals=t(tv), t_spill_rows=t(tr), t_spill_cols=t(tc),
+        )
 
 
 def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
@@ -1052,14 +1056,15 @@ def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
         permute_csr,
     )
 
-    rp, cp = bandwidth_permutation(offsets, indices, n_rows, n_cols,
-                                   tile=tile)
-    if np.array_equal(rp, np.arange(n_rows)) and \
-            np.array_equal(cp, np.arange(n_cols)):
-        return None  # permutation found nothing better than identity
-    p_offsets, p_indices, p_values = permute_csr(
-        offsets, indices, values, rp, cp, n_rows, n_cols
-    )
+    with trace_scope("sparse_reorder"):
+        rp, cp = bandwidth_permutation(offsets, indices, n_rows, n_cols,
+                                       tile=tile)
+        if np.array_equal(rp, np.arange(n_rows)) and \
+                np.array_equal(cp, np.arange(n_cols)):
+            return None  # permutation found nothing better than identity
+        p_offsets, p_indices, p_values = permute_csr(
+            offsets, indices, values, rp, cp, n_rows, n_cols
+        )
     inner = build_block_band(p_offsets, p_indices, p_values, n_rows,
                              n_cols, dtype, tile, spill_frac, device)
     if inner is None:
@@ -1072,8 +1077,10 @@ def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
     def t(a):
         return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
-    return PermutedOp(inner=inner, row_perm=t(rp), inv_row_perm=t(inv_rp),
-                      col_perm=t(cp), inv_col_perm=t(inv_cp))
+    with trace_scope("device_upload"):
+        return PermutedOp(inner=inner, row_perm=t(rp),
+                          inv_row_perm=t(inv_rp), col_perm=t(cp),
+                          inv_col_perm=t(inv_cp))
 
 
 def _csr_to_ell(offsets, indices, values, n_rows, width, dtype):

@@ -5,8 +5,27 @@ paths (mip/solve.cu:60, pdlp.cu) and relies on Nsight for timelines.
 Here:
 
   - trace_scope(name): a torch.profiler.record_function span (host and,
-    under a CUDA profiler, the device work launched inside it) plus an
-    NVTX range when CUDA is present.
+    under a CUDA profiler, the device work launched inside it) while a
+    profiler is active, and one shared do-nothing context otherwise, so
+    a span costs one flag check when nobody listens. Under Nsight, wrap
+    the run in torch.autograd.profiler.emit_nvtx(): it turns the
+    profiler on, so every span is then also an NVTX range.
+  - The LP path's spans, by layer (lp/pdlp.py, sparse/ops.py):
+      pdlp_run               PdlpSolver.run after its early stop return
+      pdlp_build             build_device_problem, inside pdlp_run
+      sparse_band_layout     build_block_band's slabs and transpose (one
+                             per band try)
+      sparse_reorder         the bandwidth permutation and the permuted
+                             CSR, when the unpermuted band fails
+      device_upload          the build's host-to-device copies
+      pdlp_scaling           compute_scaling
+      pdlp_pdhg_steps        a major's PDHG steps
+      pdlp_step_sync         an attempt's read of its `valid` flag
+      pdlp_termination       a major's termination information
+      pdlp_restart           a major's restart decision
+      pdlp_major_readback    a major's one packed read of its scalars
+      pdlp_answer            the solution vectors to the host, the
+                             inverse permutation and the sign flip
   - CUOPT_PROFILE_DIR=<dir>: when set, the first solve starts a
     torch.profiler trace and atexit writes it as a Chrome trace into
     <dir>.
@@ -24,8 +43,12 @@ import contextlib
 import os
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 _profiler = None
+# what trace_scope returns with no profiler active: stateless, so one
+# instance serves every span and thread
+_CLOSED = contextlib.nullcontext()
 
 
 def asserts_enabled() -> bool:
@@ -60,15 +83,13 @@ def _stop_profile(d: str) -> None:
         _profiler = None
 
 
-@contextlib.contextmanager
 def trace_scope(name: str):
-    """Named span for the profiler timeline and for NVTX-aware tools."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+    """Named span on the profiler's timeline while a profiler is active
+    (torch.profiler, or emit_nvtx for Nsight); otherwise a shared
+    do-nothing context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _CLOSED
 
 
 def debug_assert(pred, msg: str) -> None:
