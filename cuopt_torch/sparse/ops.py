@@ -1048,9 +1048,10 @@ def build_block_band(offsets, indices, values, n_rows, n_cols, dtype,
 
 def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
                         tile=128, spill_frac=0.15, device="cuda"):
-    """Bandwidth-reduce via row/col permutation (sparse/reorder.py), then
-    build the slab operator on the permuted matrix. Returns a PermutedOp
-    or None when even the permuted pattern has no usable band."""
+    """Bandwidth-reduce via row/col permutation (sparse/reorder.py,
+    computed on `device`), then build the slab operator on the permuted
+    matrix. Returns a PermutedOp or None when even the permuted pattern
+    has no usable band."""
     from cuopt_torch.sparse.reorder import (
         bandwidth_permutation,
         permute_csr,
@@ -1058,7 +1059,7 @@ def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
 
     with trace_scope("sparse_reorder"):
         rp, cp = bandwidth_permutation(offsets, indices, n_rows, n_cols,
-                                       tile=tile)
+                                       tile=tile, device=device)
         if np.array_equal(rp, np.arange(n_rows)) and \
                 np.array_equal(cp, np.arange(n_cols)):
             return None  # permutation found nothing better than identity

@@ -8,13 +8,22 @@ window. Many "unstructured" LP matrices
 (multicommodity, set-cover, scheduling models) are bandable after a
 simultaneous row+column permutation.
 
-This module computes that permutation on host with the classic
-barycentric (Sloan/King-flavoured) sweep for bipartite graphs:
-alternately order rows by the mean position of their column neighbours
-and columns by the mean position of their row neighbours. Each sweep is
-O(nnz) in vectorized numpy; a handful of sweeps converges. The sweep is
-seeded both from the natural order and from a degree-sorted order, and
-the best result under the band-area cost is kept.
+This module computes that permutation with the classic barycentric
+(Sloan/King-flavoured) sweep for bipartite graphs: alternately order rows
+by the mean position of their column neighbours and columns by the mean
+position of their row neighbours. The sweep is seeded from Cuthill–McKee,
+from a pseudo-peripheral BFS level structure and from the natural order,
+and the best result under the band-area cost is kept.
+
+Everything runs as torch tensor ops on the device the operator is built
+for, over one (row, column) pair per nonzero. Each breadth-first
+half-level is one gather and one scatter-min over all nonzeros, and a
+level that finds nothing new changes nothing, so the host reads a
+counter only after runs of levels that double up to
+`_MAX_LEVELS_PER_READ`. The arithmetic is exact on every device: ranks,
+minima and maxima, sums of integer positions below 2^53 divided once in
+float64, and stable sorts. So the permutation is the same on the card as
+on the CPU, and the same as cuopt_tpu's NumPy one.
 
 The permutation is applied around the operator by PermutedOp
 (sparse/ops.py): solve the permuted problem, gather the solution back.
@@ -23,33 +32,316 @@ The permutation is applied around the operator by PermutedOp
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+# An unreached node's position or level; far below int64's limit, so that
+# a level one beyond it does not wrap.
+_FAR = 2 ** 62
+# Breadth-first levels run between two host reads, at most.
+_MAX_LEVELS_PER_READ = 16
 
 
-def _csr_rows(offsets: np.ndarray) -> np.ndarray:
-    return np.repeat(
-        np.arange(len(offsets) - 1, dtype=np.int64), np.diff(offsets)
-    )
+class _Graph:
+    """The bipartite row/column graph of a CSR pattern on `device`: the
+    row and the column of every nonzero, and both sides' degrees."""
+
+    def __init__(self, offsets, indices, n_rows, n_cols, device):
+        offsets = torch.as_tensor(np.asarray(offsets, np.int64)).to(device)
+        self.cols = torch.as_tensor(np.asarray(indices)).to(
+            device, torch.int64)
+        self.device = self.cols.device
+        self.rdeg = offsets.diff()
+        self.rows = torch.repeat_interleave(
+            torch.arange(n_rows, device=device), self.rdeg,
+            output_size=len(self.cols))
+        self.cdeg = torch.zeros(n_cols, dtype=torch.int64, device=device)
+        self.cdeg.index_add_(0, self.cols, torch.ones_like(self.cols))
+        self.n_rows, self.n_cols = n_rows, n_cols
+
+    def arange(self, n, dtype=torch.int64):
+        return torch.arange(n, dtype=dtype, device=self.device)
+
+    def far(self, n):
+        return torch.full((n,), _FAR, dtype=torch.int64, device=self.device)
 
 
-def tile_window_widths(
+def _inverse(perm, dtype=torch.int64):
+    """Position of each element under the ordering `perm`."""
+    n = len(perm)
+    return torch.empty(n, dtype=dtype, device=perm.device).scatter_(
+        0, perm, torch.arange(n, dtype=dtype, device=perm.device))
+
+
+def _replayed(step, device):
+    """`step` itself off a card. On a card, the first call runs `step`
+    and captures it into a CUDA graph, and later calls replay the graph:
+    one launch in place of the dozen ops of a breadth-first level, whose
+    host cost would otherwise exceed their device time. `step` updates
+    its tensors in place and reads nothing back to the host."""
+    if device.type != "cuda":
+        return step
+    graph = None
+
+    def call():
+        nonlocal graph
+        if graph is not None:
+            graph.replay()
+            return
+        step()
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            step()
+            graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+
+    return call
+
+
+def _until_still(step, count, seen):
+    """Call `step` in runs of 1, 2, 4, ... up to _MAX_LEVELS_PER_READ
+    calls, reading `count()` after each run, until a run leaves it at
+    `seen`, its value before the run. Returns the count."""
+    run = 1
+    while True:
+        for _ in range(run):
+            step()
+        now = count()
+        if now == seen:
+            return now
+        seen, run = now, min(2 * run, _MAX_LEVELS_PER_READ)
+
+
+def _place(src_pos, src, dst, dst_pos, placed, ar):
+    """One half-level of Cuthill–McKee: every unplaced node of `dst_pos`
+    beside a placed node of `src_pos` takes the next free position after
+    `placed`, in the order of (least position among its placed
+    neighbours, id). Updates `dst_pos` and the count `placed`."""
+    parent = torch.full_like(dst_pos, _FAR).scatter_reduce_(
+        0, dst, src_pos[src], "amin")
+    key, order = torch.sort(torch.where(dst_pos == _FAR, parent, _FAR),
+                            stable=True)
+    new = key < _FAR
+    dst_pos.scatter_reduce_(0, order, torch.where(new, placed + ar, _FAR),
+                            "amin")
+    placed.add_(new.sum())
+
+
+def _cuthill_mckee(g: _Graph):
+    """Bipartite Cuthill–McKee as (row_order, col_order) tensors.
+
+    Level-synchronous BFS over the row/column graph; each component starts
+    from its least-degree unplaced row (ties by id). All placed neighbours
+    of an unplaced node lie in the newest level, so ordering a level by
+    (least placed neighbour's position, id) is ordering it by first
+    appearance in that level's neighbour lists. Rows of no nonzeros are
+    components of their own, so they come first, by id; columns never
+    reached come last, by id."""
+    empty = g.rdeg == 0
+    rpos = torch.where(empty, empty.cumsum(0) - 1, _FAR)
+    cpos = g.far(g.n_cols)
+    deg_rank = torch.sort(g.rdeg, stable=True).indices
+    r_ar, c_ar = g.arange(g.n_rows), g.arange(g.n_cols)
+    r_placed = empty.sum()
+    c_placed = torch.zeros_like(r_placed)
+
+    def level():
+        _place(rpos, g.rows, g.cols, cpos, c_placed, c_ar)
+        _place(cpos, g.cols, g.rows, rpos, r_placed, r_ar)
+
+    def count():
+        return tuple(torch.stack((r_placed, c_placed)).tolist())
+
+    level = _replayed(level, g.device)
+    done, c_done = int(r_placed), 0
+    while done < g.n_rows:
+        first = torch.argmax((rpos[deg_rank] == _FAR).to(torch.uint8))
+        seed = int(deg_rank.index_select(0, first.view(1)))
+        rpos[seed] = done
+        r_placed.add_(1)
+        done, c_done = _until_still(level, count, (done + 1, c_done))
+    unreached = cpos == _FAR
+    cpos = torch.where(unreached, c_placed + unreached.cumsum(0) - 1, cpos)
+    return _inverse(rpos), _inverse(cpos)
+
+
+def _peripheral_levels(g: _Graph, n_probes=3):
+    """GPS level structure as (row_levels, col_levels) tensors: BFS from
+    the least-degree row with nonzeros, re-seed at the least-degree row of
+    the deepest row level, `n_probes` times; unreached nodes go one level
+    beyond the deepest.
+
+    A BFS is relaxed over all nonzeros at once, level after level, until
+    the rows reached stop growing: a column's level is the least of its
+    row neighbours', a row's one more than its least column neighbour's
+    (the seed's is 0; _FAR where unreached). Levels only fall, so each
+    relaxation takes the least with the levels already found."""
+    rlev, clev = g.far(g.n_rows), g.far(g.n_cols)
+
+    def level():
+        clev.scatter_reduce_(0, g.cols, rlev[g.rows], "amin")
+        rlev.scatter_reduce_(0, g.rows, clev[g.cols] + 1, "amin")
+
+    level = _replayed(level, g.device)
+    seed = torch.argmin(torch.where(g.rdeg > 0, g.rdeg, _FAR)).view(1)
+    for _ in range(n_probes):
+        rlev.fill_(_FAR).scatter_(0, seed, 0)
+        clev.fill_(_FAR)
+        _until_still(level, lambda: int((rlev < _FAR).sum()), 1)
+        deepest = torch.where(rlev < _FAR, rlev, -1).max()
+        seed = torch.argmin(
+            torch.where(rlev == deepest, g.rdeg, _FAR)).view(1)
+    deep = torch.maximum(deepest, torch.where(clev < _FAR, clev, -1).max())
+    return (torch.where(rlev == _FAR, deep + 1, rlev),
+            torch.where(clev == _FAR, deep + 1, clev))
+
+
+def _order_by(level, deg, nnz):
+    """Order by level, then degree (at most `nnz`), then id."""
+    return torch.sort(level * (nnz + 1) + deg, stable=True).indices
+
+
+def _barycentric(g: _Graph, row_pos, col_pos, n_iter):
+    """Barycentric sweeps from float64 positions: each side ordered by the
+    mean position of its neighbours. Returns the last (row_order,
+    col_order)."""
+    row_n = g.rdeg.clamp(min=1).double()
+    col_n = g.cdeg.clamp(min=1).double()
+    r_ar = g.arange(g.n_rows, torch.float64)
+    c_ar = g.arange(g.n_cols, torch.float64)
+    for _ in range(n_iter):
+        score = torch.zeros_like(r_ar).index_add_(
+            0, g.rows, col_pos[g.cols]) / row_n
+        ro = torch.sort(score, stable=True).indices
+        row_pos = torch.empty_like(r_ar).scatter_(0, ro, r_ar)
+        score = torch.zeros_like(c_ar).index_add_(
+            0, g.cols, row_pos[g.rows]) / col_n
+        co = torch.sort(score, stable=True).indices
+        col_pos = torch.empty_like(c_ar).scatter_(0, co, c_ar)
+    return ro, co
+
+
+def _midpoint(g: _Graph, rp, cp, n_iter):
+    """Bandwidth-targeted refinement: order each side by the MIDPOINT
+    (min+max)/2 of its neighbours' positions (a node of no nonzeros keeps
+    its position). Unlike the mean (profile-targeted), the midpoint
+    directly shrinks the max per-tile window; on a randomly permuted band
+    it cut the max width 812 -> 625 on top of CM (r04 measurement)."""
+    r_ar = g.arange(g.n_rows, torch.float64)
+    c_ar = g.arange(g.n_cols, torch.float64)
+    row_pos = torch.empty_like(r_ar).scatter_(0, rp, r_ar)
+    col_pos = torch.empty_like(c_ar).scatter_(0, cp, c_ar)
+    r_has, c_has = g.rdeg > 0, g.cdeg > 0
+
+    def side(pos, nbr_pos, node, nbr, has, ar):
+        p = nbr_pos[nbr]
+        lo = torch.full_like(ar, np.inf).scatter_reduce_(0, node, p, "amin")
+        hi = torch.full_like(ar, -np.inf).scatter_reduce_(0, node, p, "amax")
+        order = torch.sort(torch.where(has, (lo + hi) / 2, pos),
+                           stable=True).indices
+        return order, torch.empty_like(ar).scatter_(0, order, ar)
+
+    ro, co = rp, cp
+    for _ in range(n_iter):
+        ro, row_pos = side(row_pos, col_pos, g.rows, g.cols, r_has, r_ar)
+        co, col_pos = side(col_pos, row_pos, g.cols, g.rows, c_has, c_ar)
+    return ro, co
+
+
+def _tile_widths(g: _Graph, rp, cp, tile):
+    """Per-`tile`-row tile full column-window width (hi - lo + 1) of
+    A[rp][:, cp]; 0 for a tile of no nonzeros."""
+    n_tiles = (g.n_rows + tile - 1) // tile
+    t = _inverse(rp)[g.rows] // tile
+    p = _inverse(cp)[g.cols]
+    lo = torch.full((n_tiles,), _FAR, dtype=torch.int64, device=p.device)
+    hi = torch.full((n_tiles,), -1, dtype=torch.int64, device=p.device)
+    lo.scatter_reduce_(0, t, p, "amin")
+    hi.scatter_reduce_(0, t, p, "amax")
+    return torch.where(hi >= 0, hi - lo + 1, 0)
+
+
+def _band_cost(widths: np.ndarray, quantile=0.85) -> float:
+    """Cost of a candidate ordering: the q-quantile of its per-tile window
+    widths (the slab width the band operator would need, up to spill)."""
+    nz = widths[widths > 0]
+    if len(nz) == 0:
+        return 0.0
+    return float(np.quantile(nz, quantile))
+
+
+def _numpy(*tensors):
+    return tuple(t.cpu().numpy() for t in tensors)
+
+
+def cuthill_mckee_permutation(offsets, indices, n_rows, n_cols):
+    """Bipartite Cuthill–McKee (row_order, col_order). Recovers hidden
+    band/staircase structure exactly when the matrix is a row/col
+    permutation of a banded one — the standard bandwidth-minimization
+    result CM is known for, applied to the rectangular (bipartite)
+    case."""
+    g = _Graph(offsets, indices, n_rows, n_cols, "cpu")
+    return _numpy(*_cuthill_mckee(g))
+
+
+def pseudo_peripheral_levels(offsets, indices, n_rows, n_cols,
+                             n_probes=3):
+    """BFS level structure from a pseudo-peripheral row (GPS-style): BFS
+    from a low-degree row, re-seed at the farthest row found, repeat. A
+    DEEP level structure is the backbone of good bandwidth orderings — on
+    a randomly permuted band, level order + midpoint refinement recovered
+    max tile-span 368 vs 625 for plain CM+ refinement (r04 measurement).
+    Returns (row_levels, col_levels)."""
+    if int(np.count_nonzero(np.diff(np.asarray(offsets)))) == 0:
+        return np.zeros(n_rows, np.int64), np.zeros(n_cols, np.int64)
+    g = _Graph(offsets, indices, n_rows, n_cols, "cpu")
+    return _numpy(*_peripheral_levels(g, n_probes))
+
+
+def bandwidth_permutation(
     offsets: np.ndarray,
     indices: np.ndarray,
-    col_pos: np.ndarray,
     n_rows: int,
-    tile: int,
-) -> np.ndarray:
-    """Per-128-row-tile full column-window width (hi - lo + 1) under the
-    column positions `col_pos`, for rows in their current order."""
-    T = (n_rows + tile - 1) // tile
-    widths = np.zeros(T, np.int64)
-    pos = col_pos[indices]
-    for t in range(T):
-        a = offsets[min(t * tile, n_rows)]
-        b = offsets[min((t + 1) * tile, n_rows)]
-        if b > a:
-            seg = pos[a:b]
-            widths[t] = int(seg.max()) - int(seg.min()) + 1
-    return widths
+    n_cols: int,
+    sweeps: int = 10,
+    tile: int = 128,
+    device="cpu",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Return (row_perm, col_perm) such that A[row_perm][:, col_perm]
+    has (heuristically) minimal per-tile column windows, computed on
+    `device`.
+
+    Candidates: the identity; Cuthill–McKee, alone and refined by midpoint
+    sweeps; the pseudo-peripheral level order, alone and refined by
+    midpoint sweeps; CM and the natural order refined by barycentric
+    sweeps. The first of least band cost wins. The host reads the
+    candidates' tile widths once, and the winner.
+    """
+    if len(indices) == 0 or n_rows == 0 or n_cols == 0:
+        return np.arange(n_rows), np.arange(n_cols)
+    g = _Graph(offsets, indices, n_rows, n_cols, device)
+    identity = (g.arange(n_rows), g.arange(n_cols))
+    cm = _cuthill_mckee(g)
+    rlev, clev = _peripheral_levels(g)
+    nnz = len(g.cols)
+    gps = (_order_by(rlev, g.rdeg, nnz), _order_by(clev, g.cdeg, nnz))
+    candidates = [
+        identity,
+        cm,
+        _midpoint(g, cm[0], cm[1], max(10, sweeps)),
+        gps,
+        _midpoint(g, gps[0], gps[1], max(30, 3 * sweeps)),
+        _barycentric(g, _inverse(cm[0], torch.float64),
+                     _inverse(cm[1], torch.float64), max(2, sweeps // 2)),
+        _barycentric(g, g.arange(n_rows, torch.float64),
+                     g.arange(n_cols, torch.float64), sweeps),
+    ]
+    widths = torch.stack([_tile_widths(g, rp, cp, tile)
+                          for rp, cp in candidates]).cpu().numpy()
+    costs = [_band_cost(w) for w in widths]
+    return _numpy(*candidates[costs.index(min(costs))])
 
 
 def _gather_rows(offsets, row_perm):
@@ -66,307 +358,6 @@ def _gather_rows(offsets, row_perm):
         + np.repeat(src_start, perm_counts)
     )
     return new_offsets, src_idx
-
-
-def band_cost(offsets, indices, row_perm, col_perm, n_rows, n_cols,
-              tile=128, quantile=0.85) -> float:
-    """Cost of a candidate ordering: the q-quantile of per-tile window
-    widths (the slab width the band operator would need, up to spill)."""
-    inv_col = np.empty(n_cols, np.int64)
-    inv_col[col_perm] = np.arange(n_cols)
-    perm_offsets, src_idx = _gather_rows(offsets, row_perm)
-    idx_list = indices[src_idx]
-    widths = tile_window_widths(
-        perm_offsets, idx_list, inv_col.astype(np.float64), n_rows, tile
-    )
-    nz = widths[widths > 0]
-    if len(nz) == 0:
-        return 0.0
-    return float(np.quantile(nz, quantile))
-
-
-def _first_occurrence_order(keys, ranks):
-    """Unique keys ordered by the minimum rank at which each appears
-    (ties broken by key)."""
-    order = np.lexsort((ranks, keys))  # sort by key, then rank
-    k_sorted = keys[order]
-    r_sorted = ranks[order]
-    first = np.ones(len(k_sorted), bool)
-    first[1:] = k_sorted[1:] != k_sorted[:-1]
-    uniq = k_sorted[first]
-    min_rank = r_sorted[first]
-    return uniq[np.argsort(min_rank, kind="stable")]
-
-
-def cuthill_mckee_permutation(
-    offsets: np.ndarray,
-    indices: np.ndarray,
-    n_rows: int,
-    n_cols: int,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Bipartite Cuthill–McKee: level-synchronous BFS over the bipartite
-    row/column graph, ordering each side by (BFS level, first parent's
-    position). Recovers hidden band/staircase structure exactly when the
-    matrix is a row/col permutation of a banded one — the standard
-    bandwidth-minimization result CM is known for, applied to the
-    rectangular (bipartite) case."""
-    offsets = np.asarray(offsets, np.int64)
-    indices = np.asarray(indices, np.int64)
-    rows_of = _csr_rows(offsets)
-    # transpose adjacency (cols -> rows)
-    t_offsets = np.zeros(n_cols + 1, np.int64)
-    np.add.at(t_offsets, indices + 1, 1)
-    np.cumsum(t_offsets, out=t_offsets)
-    order_by_col = np.argsort(indices, kind="stable")
-    t_indices = rows_of[order_by_col]
-
-    row_deg = np.diff(offsets)
-    row_order = np.empty(n_rows, np.int64)
-    col_order = np.empty(n_cols, np.int64)
-    row_seen = np.zeros(n_rows, bool)
-    col_seen = np.zeros(n_cols, bool)
-    r_ctr = c_ctr = 0
-
-    deg_rank = np.argsort(row_deg, kind="stable")  # component seeds
-    seed_ptr = 0
-    while r_ctr < n_rows:
-        while seed_ptr < n_rows and row_seen[deg_rank[seed_ptr]]:
-            seed_ptr += 1
-        if seed_ptr >= n_rows:
-            break
-        frontier = np.array([deg_rank[seed_ptr]], np.int64)
-        row_seen[frontier] = True
-        row_order[r_ctr:r_ctr + 1] = frontier
-        r_ctr += 1
-        side = "r"
-        while len(frontier):
-            if side == "r":
-                # expand rows -> cols
-                counts = row_deg[frontier]
-                starts = offsets[frontier]
-                total = int(counts.sum())
-                if total == 0:
-                    break
-                flat = (
-                    np.arange(total, dtype=np.int64)
-                    - np.repeat(np.cumsum(counts) - counts, counts)
-                    + np.repeat(starts, counts)
-                )
-                nbr = indices[flat]
-                ranks = np.repeat(np.arange(len(frontier)), counts)
-                new = _first_occurrence_order(nbr, ranks)
-                new = new[~col_seen[new]]
-                col_seen[new] = True
-                col_order[c_ctr:c_ctr + len(new)] = new
-                c_ctr += len(new)
-                frontier, side = new, "c"
-            else:
-                # expand cols -> rows
-                counts = np.diff(t_offsets)[frontier]
-                starts = t_offsets[frontier]
-                total = int(counts.sum())
-                if total == 0:
-                    break
-                flat = (
-                    np.arange(total, dtype=np.int64)
-                    - np.repeat(np.cumsum(counts) - counts, counts)
-                    + np.repeat(starts, counts)
-                )
-                nbr = t_indices[flat]
-                ranks = np.repeat(np.arange(len(frontier)), counts)
-                new = _first_occurrence_order(nbr, ranks)
-                new = new[~row_seen[new]]
-                row_seen[new] = True
-                row_order[r_ctr:r_ctr + len(new)] = new
-                r_ctr += len(new)
-                frontier, side = new, "r"
-    # isolated columns (no nnz) go last
-    if c_ctr < n_cols:
-        rest = np.flatnonzero(~col_seen)
-        col_order[c_ctr:] = rest
-    if r_ctr < n_rows:
-        rest = np.flatnonzero(~row_seen)
-        row_order[r_ctr:] = rest
-    return row_order, col_order
-
-
-def pseudo_peripheral_levels(offsets, indices, n_rows, n_cols,
-                             n_probes=3):
-    """BFS level structure from a pseudo-peripheral row (GPS-style):
-    BFS from a low-degree row, re-seed at the farthest row found,
-    repeat. A DEEP level structure is the backbone of good bandwidth
-    orderings — on a randomly permuted band, level order + midpoint
-    refinement recovered max tile-span 368 vs 625 for plain CM+
-    refinement (r04 measurement). Returns (row_levels, col_levels)."""
-    offsets = np.asarray(offsets, np.int64)
-    indices = np.asarray(indices, np.int64)
-    rows_of = _csr_rows(offsets)
-    t_offsets = np.zeros(n_cols + 1, np.int64)
-    np.add.at(t_offsets, indices + 1, 1)
-    np.cumsum(t_offsets, out=t_offsets)
-    t_indices = rows_of[np.argsort(indices, kind="stable")]
-    rdeg = np.diff(offsets)
-
-    def bfs(seed_rows):
-        rlev = np.full(n_rows, -1, np.int64)
-        clev = np.full(n_cols, -1, np.int64)
-        rlev[seed_rows] = 0
-        frontier, side, lev = seed_rows, "r", 0
-        last = seed_rows
-        while len(frontier):
-            mask = np.zeros(n_cols if side == "r" else n_rows, bool)
-            if side == "r":
-                for f in frontier:
-                    mask[indices[offsets[f]:offsets[f + 1]]] = True
-                nbr = np.flatnonzero(mask)
-                nbr = nbr[clev[nbr] < 0]
-                clev[nbr] = lev
-                frontier, side = nbr, "c"
-            else:
-                for f in frontier:
-                    mask[t_indices[t_offsets[f]:t_offsets[f + 1]]] = True
-                nbr = np.flatnonzero(mask)
-                nbr = nbr[rlev[nbr] < 0]
-                lev += 1
-                rlev[nbr] = lev
-                frontier, side = nbr, "r"
-                if len(nbr):
-                    last = nbr
-        return rlev, clev, last
-
-    nz_rows = np.flatnonzero(rdeg > 0)
-    if len(nz_rows) == 0:
-        return np.zeros(n_rows, np.int64), np.zeros(n_cols, np.int64)
-    seed = np.array([nz_rows[np.argmin(rdeg[nz_rows])]])
-    rlev = clev = None
-    for _ in range(n_probes):
-        rlev, clev, last = bfs(seed)
-        seed = np.array([last[int(np.argmin(rdeg[last]))]])
-    # unreached components / empty rows+cols: append after the deepest
-    deep = max(int(rlev.max()), int(clev.max())) + 1
-    rlev = np.where(rlev < 0, deep, rlev)
-    clev = np.where(clev < 0, deep, clev)
-    return rlev, clev
-
-
-def bandwidth_permutation(
-    offsets: np.ndarray,
-    indices: np.ndarray,
-    n_rows: int,
-    n_cols: int,
-    sweeps: int = 10,
-    tile: int = 128,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Return (row_perm, col_perm) such that A[row_perm][:, col_perm]
-    has (heuristically) minimal per-tile column windows.
-
-    Barycentric sweeps: row position <- mean(col positions of its nnz);
-    column position <- mean(row positions of its nnz); positions are the
-    ranks after argsort. Keeps the best ordering seen (including the
-    identity) under the band-area cost.
-    """
-    offsets = np.asarray(offsets, np.int64)
-    indices = np.asarray(indices, np.int64)
-    nnz = len(indices)
-    if nnz == 0 or n_rows == 0 or n_cols == 0:
-        return np.arange(n_rows), np.arange(n_cols)
-
-    rows = _csr_rows(offsets)
-    row_counts = np.maximum(np.diff(offsets), 1)
-    col_counts = np.maximum(np.bincount(indices, minlength=n_cols), 1)
-
-    def _sweep(row_pos, col_pos, n_iter):
-        best = None
-        for _ in range(n_iter):
-            # rows follow their columns
-            row_score = np.bincount(
-                rows, weights=col_pos[indices], minlength=n_rows
-            ) / row_counts
-            row_order = np.argsort(row_score, kind="stable")
-            row_pos = np.empty(n_rows, np.float64)
-            row_pos[row_order] = np.arange(n_rows)
-            # columns follow their rows
-            col_score = np.bincount(
-                indices, weights=row_pos[rows], minlength=n_cols
-            ) / col_counts
-            col_order = np.argsort(col_score, kind="stable")
-            col_pos = np.empty(n_cols, np.float64)
-            col_pos[col_order] = np.arange(n_cols)
-            best = (row_order, col_order)
-        return best
-
-    def _minmax_sweep(rp, cp, n_iter):
-        """Bandwidth-targeted refinement: order each side by the
-        MIDPOINT (min+max)/2 of its neighbours' positions. Unlike the
-        mean (profile-targeted), the midpoint directly shrinks the max
-        per-tile window; on a randomly permuted band it cut the max
-        width 812 -> 625 on top of CM (r04 measurement)."""
-        row_pos = np.empty(n_rows, np.float64)
-        row_pos[rp] = np.arange(n_rows)
-        col_pos = np.empty(n_cols, np.float64)
-        col_pos[cp] = np.arange(n_cols)
-        ro, co = rp, cp
-        for _ in range(n_iter):
-            p = col_pos[indices]
-            rmin = np.full(n_rows, np.inf)
-            rmax = np.full(n_rows, -np.inf)
-            np.minimum.at(rmin, rows, p)
-            np.maximum.at(rmax, rows, p)
-            with np.errstate(invalid="ignore"):
-                rs = np.where(np.isfinite(rmin), (rmin + rmax) / 2,
-                              row_pos)
-            ro = np.argsort(rs, kind="stable")
-            row_pos[ro] = np.arange(n_rows)
-            q = row_pos[rows]
-            cmin = np.full(n_cols, np.inf)
-            cmax = np.full(n_cols, -np.inf)
-            np.minimum.at(cmin, indices, q)
-            np.maximum.at(cmax, indices, q)
-            with np.errstate(invalid="ignore"):
-                cs = np.where(np.isfinite(cmin), (cmin + cmax) / 2,
-                              col_pos)
-            co = np.argsort(cs, kind="stable")
-            col_pos[co] = np.arange(n_cols)
-        return ro, co
-
-    identity = (np.arange(n_rows), np.arange(n_cols))
-    candidates = [identity]
-    # seed 1: bipartite Cuthill-McKee (recovers hidden bands exactly)
-    cm = cuthill_mckee_permutation(offsets, indices, n_rows, n_cols)
-    candidates.append(cm)
-    # seed 2: CM refined by bandwidth-targeted midpoint sweeps
-    candidates.append(_minmax_sweep(cm[0], cm[1], max(10, sweeps)))
-    # seed 3 (usually the winner on permuted bands): pseudo-peripheral
-    # BFS level order refined by midpoint sweeps
-    try:
-        rlev, clev = pseudo_peripheral_levels(offsets, indices, n_rows,
-                                              n_cols)
-        rdeg = np.diff(offsets)
-        cdeg = np.bincount(indices, minlength=n_cols)
-        gps = (np.lexsort((rdeg, rlev)), np.lexsort((cdeg, clev)))
-        candidates.append(gps)
-        candidates.append(_minmax_sweep(gps[0], gps[1],
-                                        max(30, 3 * sweeps)))
-    except Exception:  # noqa: BLE001 — GPS is a best-effort candidate
-        pass
-    # seed 3: CM refined by barycentric sweeps
-    cm_row_pos = np.empty(n_rows, np.float64)
-    cm_row_pos[cm[0]] = np.arange(n_rows)
-    cm_col_pos = np.empty(n_cols, np.float64)
-    cm_col_pos[cm[1]] = np.arange(n_cols)
-    candidates.append(_sweep(cm_row_pos, cm_col_pos, max(2, sweeps // 2)))
-    # seed 4: natural order + sweeps
-    candidates.append(_sweep(
-        np.arange(n_rows, dtype=np.float64),
-        np.arange(n_cols, dtype=np.float64), sweeps,
-    ))
-
-    best_perm, best_cost = None, np.inf
-    for rp, cp in candidates:
-        cost = band_cost(offsets, indices, rp, cp, n_rows, n_cols, tile)
-        if cost < best_cost:
-            best_cost, best_perm = cost, (rp, cp)
-    return best_perm
 
 
 def permute_csr(offsets, indices, values, row_perm, col_perm,

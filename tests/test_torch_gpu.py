@@ -27,7 +27,7 @@ from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.lp.solve import solve_lp
 from cuopt_torch.problem.mittelmann import GENERATORS
 from cuopt_torch.problem.synthetic import generate_lp
-from cuopt_torch.sparse import build_operator
+from cuopt_torch.sparse import build_operator, reorder
 from cuopt_torch.sparse.ops import BlockBandOp, _tile_windows
 from cuopt_torch.sparse.reorder import permute_csr
 
@@ -195,6 +195,48 @@ def _f32_pdlp_settings(**kw):
     for k, v in kw.items():
         setattr(s, k, v)
     return s
+
+
+def test_band_recovery_on_the_card_equals_the_cpus(cuda, monkeypatch):
+    """The 50k staircase under a random row and column permutation (the
+    shuffled benchmark cell's LP): the permutation computed on the card
+    equals the CPU's bit for bit (the CPU's equals cuopt_tpu's,
+    tests/test_torch_reorder.py), and a float32 solve on the card takes
+    the same steps whether its permutation came from the card or from
+    the CPU. Both solves run the partials row pass, which sums Aᵀy in a
+    fixed order: the atomic one adds in float32 in no fixed order, so
+    its step counts can differ between two solves of one LP."""
+    n = 50_000
+    base = generate_lp(n, n, 8, seed=17, band=256)
+    rng = np.random.default_rng(18)
+    rp, cp = rng.permutation(n), rng.permutation(n)
+    offsets, indices, values = permute_csr(
+        base.offsets, base.indices, np.asarray(base.values, np.float64),
+        rp, cp, n, n)
+    prob = dataclasses.replace(
+        base, offsets=offsets, indices=indices, values=values,
+        constraint_lower_bounds=base.constraint_lower_bounds[rp],
+        constraint_upper_bounds=base.constraint_upper_bounds[rp],
+        objective_coefficients=base.objective_coefficients[cp],
+        variable_lower_bounds=base.variable_lower_bounds[cp],
+        variable_upper_bounds=base.variable_upper_bounds[cp])
+    args = (offsets, indices, n, n)
+    on_card = reorder.bandwidth_permutation(*args, device=cuda)
+    on_cpu = reorder.bandwidth_permutation(*args, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu))
+    assert not np.array_equal(on_card[0], np.arange(n))
+
+    def steps(p):
+        sol = solve_lp(p, _f32_pdlp_settings(), device=cuda)
+        assert sol.get_termination_reason() == "Optimal"
+        return sol.get_additional_termination_information()["iterations"]
+
+    monkeypatch.setattr(pf, "PARTIALS_MIN_COLS", 0)
+    card_steps = steps(dataclasses.replace(prob))
+    real = reorder.bandwidth_permutation
+    monkeypatch.setattr(reorder, "bandwidth_permutation",
+                        lambda *a, **k: real(*a, **{**k, "device": "cpu"}))
+    assert steps(dataclasses.replace(prob)) == card_steps
 
 
 def test_race_against_a_blocked_simplex_on_the_card(cuda, monkeypatch):
