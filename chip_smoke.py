@@ -157,8 +157,8 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      10` must give status 0 with every order served once and the routes
      kept on the host.
 
-The last two lines are one JSON object with every kernel's launches,
-error and times, and the contract line
+The last two lines are one JSON object with every kernel's launches (as
+the kernel counted them on the card), error and times, and the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -509,7 +509,9 @@ def _solve(name, prob, s, kernels):
     """solve_lp in float32 on the card with the launch counts reset just
     before it; prints its status, steps, loop rate and launches and checks
     that each attempt went through `kernels` and never through the plain
-    version. Returns (solution, info, launch counts)."""
+    version. The launches are the kernels' own count on the card, so a
+    launch that the solve's CUDA graphs replay counts each time it runs.
+    Returns (solution, info, launch counts)."""
     import torch
 
     from cuopt_torch.lp import pdhg_fused as pf

@@ -161,6 +161,19 @@ struct RowPassArgs {
     int n_blocks;
 };
 
+// Launches of each mode (0 atomic, 1 partials) that have run on this
+// device: thread 0 of block 0 counts each launch as it runs, so a launch
+// that a CUDA graph recorded counts at each replay that runs it and not
+// at the capture. Read and zeroed by row_pass_launches.
+__device__ unsigned long long g_launches[2];
+
+template <bool PARTIALS>
+__device__ __forceinline__ void count_launch()
+{
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+        atomicAdd(&g_launches[PARTIALS ? 1 : 0], 1ull);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p)
 {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -442,6 +455,7 @@ row_pass_one_pass(const RowPassArgs p)
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
+    count_launch<PARTIALS>();
 
     ring_init(full, empty, S);
     if (warp == CWARPS) {  // ---- producer: one elected thread
@@ -560,6 +574,7 @@ row_pass_column_split(const RowPassArgs p)
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
+    count_launch<PARTIALS>();
 
     ring_init(full, empty, S);
     if (warp == CWARPS) {  // ---- producer: one elected thread
@@ -692,6 +707,10 @@ row_pass_two_read(const RowPassArgs p)
     const float* slab = p.slabs + (size_t)t * TILE * W;
     const int s = p.starts[t];
     const int W4 = W >> 2;
+    // the count first in the partials mode and last in the atomic mode:
+    // there ptxas gives each mode the registers it takes without the
+    // count (80 and 64 a thread at W = 8320, with no spill)
+    if constexpr (PARTIALS) count_launch<PARTIALS>();
 
     // ---- phase 1: ax for the tile's rows (warp w owns rows 16w..16w+15)
     float acc[ROWS_PER_WARP];
@@ -800,6 +819,7 @@ row_pass_two_read(const RowPassArgs p)
     }
     if constexpr (PARTIALS) fold_column_blocks(p, s, tid,
                                                fold_slot(p, s, 0, tid));
+    if constexpr (!PARTIALS) count_launch<PARTIALS>();
 }
 
 // ------------------------------------------------------------ host side
@@ -955,6 +975,23 @@ int row_pass_config(int W, int partials, int* info)
 {
     return (int)(partials ? row_pass_info<true>(W, info)
                           : row_pass_info<false>(W, info));
+}
+
+// Launches of mode `partials` (0 or 1) that have run on the current
+// device since its last reset, into *out, once the device's work so far
+// has finished. With reset nonzero the count is then set back to zero.
+int row_pass_launches(int partials, int reset, unsigned long long* out)
+{
+    if (partials < 0 || partials > 1) return (int)cudaErrorInvalidValue;
+    const size_t at = partials * sizeof(unsigned long long);
+    cudaError_t err = cudaDeviceSynchronize();
+    if (err == cudaSuccess)
+        err = cudaMemcpyFromSymbol(out, g_launches, sizeof *out, at);
+    if (err == cudaSuccess && reset) {
+        const unsigned long long zero = 0;
+        err = cudaMemcpyToSymbol(g_launches, &zero, sizeof zero, at);
+    }
+    return (int)err;
 }
 
 const char* cuda_error_string(int err)

@@ -24,7 +24,7 @@ from cuopt_torch.utils.logger import get_logger
 # state
 _PDLP_KEYS = ("iterations", "attempts", "compile_s", "build_s",
               "solve_loop_s", "loop_steps", "loop_attempts",
-              "warm_start_data", "warm_start_data_fn")
+              "graph_slots", "graph_count_reads", "warm_start_data", "warm_start_data_fn")
 
 
 def crossover(prob, pdlp_raw, settings, timer):

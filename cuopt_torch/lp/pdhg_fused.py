@@ -68,25 +68,32 @@ _ATOMIC_ARGS = _PASS_ARGS + [_P, _P]  # aty, stream
 # parts, cb_offsets, cb_rows, counters, n_blocks, aty, stream
 _PARTIALS_ARGS = _PASS_ARGS + [_P, _P, _P, _P, _I, _P, _P]
 CONFIG_ARGS = [_I, _I, _P]  # row_pass_config(W, partials, int info[6])
+# row_pass_launches(partials, reset, unsigned long long* out)
+COUNT_ARGS = [_I, _I, _P]
 _CONFIG_KEYS = ("body", "threads", "registers", "smem_bytes",
                 "local_bytes", "blocks_per_sm")
 _BODIES = ("two-read", "one-pass", "column-split")  # row_pass_config codes
 
 
 class Kernel:
-    """One entry point of csrc/<source>.cu with its launch counter: the
-    count rises by one each time the wrapper launches the kernel, and
-    nowhere else."""
+    """One entry point of csrc/<source>.cu. `launches` is how many of its
+    launches have run on the card: the kernel counts itself on the device
+    as it runs (`g_launches` in the source), so a launch that a CUDA
+    graph recorded counts once at each replay that runs it and not at the
+    capture. Reading or resetting the count waits for every device the
+    wrapper launched on, so neither is done inside a capture."""
 
-    def __init__(self, name: str, source: str, argtypes, replaces: str):
+    def __init__(self, name: str, source: str, argtypes, replaces: str,
+                 partials: bool):
         self.name = name
         self.source = source
         self.argtypes = argtypes
         self.replaces = replaces
-        self.launches = 0
+        self.partials = int(partials)  # its count's index in g_launches
+        self._devices = set()  # the CUDA devices it was launched on
         self._fn = None
 
-    def __call__(self, *args):
+    def _library(self):
         if self._fn is None:
             lib = BUILDER.library(self.source)
             fn = getattr(lib, self.name)
@@ -94,13 +101,40 @@ class Kernel:
             fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
-            self._fn, self._err = fn, lib.cuda_error_string
-        err = self._fn(*args)
+            lib.row_pass_launches.argtypes = COUNT_ARGS
+            lib.row_pass_launches.restype = ctypes.c_int
+            self._err, self._count = lib.cuda_error_string, \
+                lib.row_pass_launches
+            self._fn = fn
+        return self._fn
+
+    def _raise_on(self, err, what):
         if err != 0:
-            raise RuntimeError(
-                f"{self.name}: CUDA launch failed: error {err} "
-                f"({self._err(err).decode()})")
-        self.launches += 1
+            raise RuntimeError(f"{self.name}: {what} failed: error {err} "
+                               f"({self._err(err).decode()})")
+
+    def __call__(self, *args):
+        fn = self._library()
+        self._devices.add(torch.cuda.current_device())
+        self._raise_on(fn(*args), "CUDA launch")
+
+    def _counts(self, reset: bool) -> int:
+        n = 0
+        for d in sorted(self._devices):
+            out = ctypes.c_ulonglong()
+            with torch.cuda.device(d):
+                self._raise_on(self._count(self.partials, int(reset),
+                                           ctypes.byref(out)),
+                               "reading its launch count")
+            n += out.value
+        return n
+
+    @property
+    def launches(self) -> int:
+        return self._counts(reset=False)
+
+    def reset(self) -> None:
+        self._counts(reset=True)
 
 
 # `replaces`: the TPU kernel body (_kernel, _kernel_stream); the partials
@@ -108,10 +142,10 @@ class Kernel:
 # (pdhg_pallas.py:428)
 ROW_PASS_ATOMIC = Kernel(
     "row_pass_atomic", "row_pass", _ATOMIC_ARGS,
-    "cuopt_tpu/lp/pdhg_pallas.py:99")
+    "cuopt_tpu/lp/pdhg_pallas.py:99", partials=False)
 ROW_PASS_PARTIALS = Kernel(
     "row_pass_partials", "row_pass", _PARTIALS_ARGS,
-    "cuopt_tpu/lp/pdhg_pallas.py:253")
+    "cuopt_tpu/lp/pdhg_pallas.py:253", partials=True)
 KERNELS = (ROW_PASS_ATOMIC, ROW_PASS_PARTIALS)
 
 
@@ -147,7 +181,7 @@ class PlainCount:
 
 def reset_counts() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.reset()
     PlainCount.calls = 0
 
 

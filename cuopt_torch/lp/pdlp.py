@@ -10,9 +10,14 @@ device:
     the host reads ONE packed tensor of scalars per major (the
     reference's termination readback cadence, pdlp.cu:1081).
   - The adaptive step-size loop over attempts (reference
-    step_size_strategy/adaptive_step_size_strategy.hpp:35) is a host loop
-    that reads the attempt's `valid` flag: one device sync per attempt.
-    An on-device predicate inside a CUDA graph is later work.
+    step_size_strategy/adaptive_step_size_strategy.hpp:35) runs two ways.
+    A solo solve on a card (`PdlpSolver._run`) replays a predicated
+    attempt (`_slot`) as a ping-pong pair of CUDA graphs
+    (`PingPongMajor`, the reference's ping_pong_graph.cuh): the attempt's
+    `valid` flag decides on the device whether it commits, and the host
+    reads one step count per round of replays. Everywhere else (CPU
+    solves, a mesh, lp/batch.py) `_take_step` is a host loop that reads
+    the flag: one device sync per attempt. Both give the same iterates.
   - On a CUDA float32 BlockBandOp every attempt runs the fused row pass
     (lp/pdhg_fused.py, kernels in csrc/row_pass.cu); otherwise the
     unfused matvec -> dual prox -> rmatvec chain.
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -377,7 +383,10 @@ def _accept(s: SolverState, cand, eta, eta_next, attempts) -> SolverState:
 
 def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
     """One PDHG step with Malitsky-Pock adaptive step size (reference
-    pdlp.cu take_step :1188 + adaptive_step_size_strategy)."""
+    pdlp.cu take_step :1188 + adaptive_step_size_strategy), as a host
+    loop over attempts. The eager path: CPU solves and every shard of a
+    mesh run it; a solo solve on a card replays `_slot` instead
+    (`PingPongMajor`), which gives the same iterates."""
     grad = dev.c - s.aty
     eta = s.step_size
     attempts = 0
@@ -762,6 +771,182 @@ def make_major_fn(cfg: StaticCfg):
     return major
 
 
+# ============================================================ graph driver
+# the state's fields a slot writes, `_accept`'s; the others (the primal
+# weight and the restart bookkeeping) change only in major_tail. `_slot`
+# checks the list against what `_accept` writes.
+_SLOT_FIELDS = ("x", "y", "ax", "aty", "step_size", "sum_weights", "avg_x",
+                "avg_y", "avg_ax", "avg_aty", "iters_since_restart",
+                "total_steps", "total_attempts", "numerical_error")
+
+
+def _slot(dev: DeviceProblem, s: SolverState, pending, cfg: StaticCfg,
+          out: SolverState, out_pending):
+    """One attempt of `_take_step` with its predicate on the device:
+    `pending` (0-d int64) is the attempt's 0-based index within its step,
+    as `_take_step`'s `attempts`. The attempt commits when it is valid or
+    at the attempt cap: `out` then holds `_accept`'s state and
+    `out_pending` 0. Otherwise the iterates and averages stay, the step
+    size becomes the next attempt's and `out_pending` is `pending + 1`.
+    Writes only `out`'s _SLOT_FIELDS and `out_pending`, with no host sync;
+    `out` must share no _SLOT_FIELDS tensor with `s`."""
+    eta = s.step_size
+    cand, valid, eta_next = _attempt(dev, s, cfg, dev.c - s.aty, eta,
+                                     pending)
+    attempts = pending + 1
+    commit = valid | (attempts >= cfg.max_step_attempts)
+    acc = _accept(s, cand, eta, eta_next, attempts)
+    written = {f.name for f in dataclasses.fields(acc)
+               if getattr(acc, f.name) is not getattr(s, f.name)}
+    if written != set(_SLOT_FIELDS):
+        raise AssertionError(f"_accept writes {written}, the slot's buffers "
+                             f"hold {_SLOT_FIELDS}")
+    # torch.where selects bits; a product by 0 would turn inf into NaN
+    for f in _SLOT_FIELDS:
+        if f != "step_size":
+            torch.where(commit, getattr(acc, f), getattr(s, f),
+                        out=getattr(out, f))
+    out.step_size.copy_(eta_next)  # accepted or not, eta_next comes next
+    torch.where(commit, torch.zeros_like(attempts), attempts,
+                out=out_pending)
+
+
+# each thread's graph-capture stream, by device. A stream that runs a
+# cuBLAS call is given a cuBLAS workspace that the process keeps (32 MiB
+# on an H100), so a new stream each solve would keep 32 MiB more a solve
+# until torch's stream pool wraps around: 1 GiB at 32 streams.
+_CAPTURE = threading.local()
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    streams = _CAPTURE.__dict__.setdefault("streams", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+class PingPongMajor:
+    """The major-iteration function of a solo solve on a card
+    (`PdlpSolver._run`): a major's steps as replays of `_slot`, then
+    `major_tail` eagerly. Same signature and same iterates as
+    `major_iteration`, which the CPU, the mesh and lp/batch.py run.
+
+    Two buffers hold the state: graph k reads buffer k and writes buffer
+    1 - k, so replays alternate (the reference's ping-pong graph,
+    ping_pong_graph.cuh, pdhg.cu:191-200). Each slot commits at most one
+    step, so with `done` of the major's `quota` steps known, the next
+    `quota - done` slots cannot overshoot: the host replays them, then
+    reads the count (one int64) and goes on until it is the quota. With a
+    few percent of attempts rejected, a major reads two or three counts
+    where the eager loop reads one flag an attempt.
+
+    The graphs are captured at the first major, on the thread's capture
+    stream in thread-local mode (the MIP's FJ thread replays its own
+    graphs meanwhile). The major's first slot runs eagerly on that stream
+    before the capture: it loads the row-pass library, its plan and
+    cuBLAS there, and, a slot being a pure function of its input buffer,
+    it gives what a replay of graph 0 would. The row-pass kernels count
+    their own launches on the device (`Kernel.launches`), so the eager
+    slot and each replay count one and the capture none: one an attempt.
+    The replays and the eager tail, which runs no row pass, go on one
+    stream, so no replayed partials pass overlaps an eager one on the
+    operator (`RowPassPlan.counters`).
+
+    One driver serves one solve on one stream: its buffers and graphs
+    hold the device problem of its first call, and its later majors run
+    on the stream that call ran on. Off a card a replay runs the slot
+    eagerly: the CPU tests drive the same rounds, buffers and reads.
+    `slots` and `count_reads` count the slots run and the counts read
+    over the solve."""
+
+    def __init__(self, cfg: StaticCfg):
+        self.cfg = cfg
+        self.dev = None
+        self.bufs = None  # two SolverStates sharing their non-slot fields
+        self.pending = None  # each buffer's 0-d int64 attempt index
+        self.graphs = None
+        self.slots = 0
+        self.count_reads = 0
+
+    def __call__(self, dev: DeviceProblem, s: SolverState):
+        quota = self.cfg.hp.major_iteration
+        with trace_scope("pdlp_pdhg_steps"):
+            if self.bufs is None:
+                self._allocate(dev, s)
+            else:
+                self._load(s)
+            start = self.bufs[0].total_steps.clone()
+            cur, ahead = 0, 0  # ahead: slots run since the last count
+            if s.x.is_cuda and self.graphs is None:
+                with trace_scope("pdlp_graph_capture"):
+                    self._capture()
+                cur, ahead = 1, 1
+            done = 0
+            while True:
+                n = quota - done - ahead
+                for _ in range(n):
+                    self._replay(cur)
+                    cur ^= 1
+                self.slots += n
+                with trace_scope("pdlp_step_sync"):
+                    done = int(self.bufs[cur].total_steps - start)
+                self.count_reads += 1
+                if done == quota:
+                    break
+                ahead = 0
+            debug_assert(self.bufs[cur].step_size > 0.0,
+                         "PDHG step size must stay positive")
+        return major_tail(dev, self.bufs[cur], self.cfg)
+
+    def _allocate(self, dev, s):
+        self.dev = dev
+        b0 = s.replace(**{f.name: getattr(s, f.name).clone()
+                          for f in dataclasses.fields(s)})
+        b1 = b0.replace(**{f: torch.empty_like(getattr(b0, f))
+                           for f in _SLOT_FIELDS})
+        self.bufs = (b0, b1)
+        self.pending = tuple(torch.zeros((), dtype=torch.int64,
+                                         device=s.x.device)
+                             for _ in (0, 1))
+
+    def _load(self, s):
+        """`s` (a major's start) into buffer 0, whose non-slot fields are
+        buffer 1's too."""
+        b0 = self.bufs[0]
+        for f in dataclasses.fields(s):
+            getattr(b0, f.name).copy_(getattr(s, f.name))
+        self.pending[0].zero_()
+
+    def _run_slot(self, k):
+        _slot(self.dev, self.bufs[k], self.pending[k], self.cfg,
+              self.bufs[1 - k], self.pending[1 - k])
+
+    def _replay(self, k):
+        if self.graphs is None:
+            self._run_slot(k)
+        else:
+            self.graphs[k].replay()
+
+    def _capture(self):
+        device = self.bufs[0].x.device
+        stream = torch.cuda.current_stream(device)
+        side = _capture_stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._run_slot(0)  # the major's first slot, and the warm-up
+            graphs = []
+            for k in (0, 1):
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(pool=graphs[0].pool() if graphs else None,
+                                capture_error_mode="thread_local")
+                self._run_slot(k)
+                g.capture_end()
+                graphs.append(g)
+        stream.wait_stream(side)
+        self.graphs = graphs
+        self.slots += 1
+
+
 # ============================================================== scaling
 def compute_scaling(op, lc_fin, uc_fin, lc0, uc0, hp: PdlpHyperParams,
                     dtype):
@@ -1095,7 +1280,6 @@ class PdlpSolver:
     def _run(self, timer: Timer, stop):
         settings = self.settings
         prob = self.prob
-        major_fn = make_major_fn(self.cfg)
         t_run0 = time.perf_counter()
         with trace_scope("pdlp_build"):
             dev = build_device_problem(prob, self.hp, self.dtype,
@@ -1117,6 +1301,13 @@ class PdlpSolver:
         run_dev = dev
         if self.mesh is not None:
             run_dev, state = shard_problem_and_state(dev, state, self.mesh)
+        # a solo solve on a card replays its steps as CUDA graphs
+        graphed = None
+        if self.device.type == "cuda" and self.mesh is None and \
+                not isinstance(run_dev, ShardedProblem):
+            major_fn = graphed = PingPongMajor(self.cfg)
+        else:
+            major_fn = make_major_fn(self.cfg)
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
         use_avg = False
@@ -1242,6 +1433,11 @@ class PdlpSolver:
                     max(time.perf_counter() - t_run0 - t_first_major, 0.0), 4),
                 "loop_steps": it - it0,
                 "loop_attempts": attempts - attempts0,
+                # the graph driver's slots (one an attempt) and count
+                # reads; 0 on the eager path
+                "graph_slots": 0 if graphed is None else graphed.slots,
+                "graph_count_reads":
+                    0 if graphed is None else graphed.count_reads,
             }
             if settings.save_best_primal_so_far and best_primal is not None \
                     and best_primal[0] < sol["primal_objective"]:

@@ -7,7 +7,9 @@ enum :37) and the Python `Solution` wrapper
 reference's keys, the termination information carries the port's timing
 split (compile_s: the device problem's build plus the first major;
 build_s: the build alone, inside compile_s; solve_loop_s, loop_steps,
-loop_attempts: the majors after the first), a crossover's
+loop_attempts: the majors after the first; graph_slots,
+graph_count_reads: the CUDA-graph driver's slots and step-count reads,
+0 off a card), a crossover's
 pivots, the concurrent race's record ("race") and, when the PDLP leg of a
 race failed, its error ("pdlp_error"). A MIP solve adds its node count,
 gap and bound, the errors its heuristics caught ("heuristic_errors"), the
@@ -83,7 +85,7 @@ class Solution:
             "linf_primal_residual", "linf_dual_residual",
             "iterations", "attempts", "solve_time", "solved_by",
             "compile_s", "build_s", "solve_loop_s", "loop_steps",
-            "loop_attempts",
+            "loop_attempts", "graph_slots", "graph_count_reads",
             "crossover_iterations", "crossover_status", "race",
             "pdlp_error",
             "nodes", "mip_gap", "solution_bound", "heuristic_errors",

@@ -23,6 +23,7 @@ import cuopt_torch.dual_simplex.concurrent as concurrent
 from cuopt_torch import constants as C
 from cuopt_torch.kernels.checks import check_row_pass, row_pass_inputs
 from cuopt_torch.lp import pdhg_fused as pf
+from cuopt_torch.lp import pdlp as TP
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.lp.solve import solve_lp
 from cuopt_torch.problem.mittelmann import GENERATORS
@@ -135,22 +136,29 @@ def test_kernel_matches_plain(cuda, case, mode):
 @pytest.mark.parametrize("mode", ["atomic", "partials"])
 def test_kernel_in_a_cuda_graph(cuda, mode):
     """The launch replays in a CUDA graph: no host-side state, and the
-    partials mode's counters are back to zero after every launch."""
+    partials mode's counters are back to zero after every launch. The
+    kernel counts the launches that ran: each eager one and each replay,
+    never the capture."""
     op = _op("wide", cuda)
     assert op.w_row == 4224  # the main path's widest window
+    kernel = pf.ROW_PASS_ATOMIC if mode == "atomic" else pf.ROW_PASS_PARTIALS
     inputs = row_pass_inputs(op, seed=4)
+    pf.reset_counts()
     want = pf.row_pass_kernel(op, *inputs, mode)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         pf.row_pass_kernel(op, *inputs, mode)
     torch.cuda.current_stream().wait_stream(side)
+    assert kernel.launches == 2
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         got = pf.row_pass_kernel(op, *inputs, mode)
+    assert kernel.launches == 2
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
+    assert kernel.launches == 5
     for a, b in zip(got, want):
         if mode == "partials":
             assert torch.equal(a, b)
@@ -179,12 +187,150 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     assert sol.get_termination_reason() == "Optimal"
     assert pf.ROW_PASS_ATOMIC.launches == info["attempts"] > 0
     assert pf.PlainCount.calls == 0
+    # every attempt a slot of the graph driver, a few count reads a major
+    assert info["graph_slots"] == info["attempts"]
+    assert 0 < info["graph_count_reads"] < info["attempts"]
     ref = PDLPSolverSettings()
     ref.log_to_console = False
     ref.method = C.CUOPT_METHOD_PDLP
     want = solve_lp(prob, ref, device="cpu").get_primal_objective()
     got = sol.get_primal_objective()
     assert abs(got - want) <= 1e-3 * (1 + abs(want)), (got, want)
+
+
+@pytest.mark.parametrize("dtype, kind", [
+    (torch.float32, "blockband"), (torch.float64, "blockband"),
+    (torch.float64, "csr")])
+def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
+                                                      dtype, kind):
+    """PingPongMajor's CUDA-graph replays against eager major_iteration,
+    three majors from one state on the card: every state field equal, bit
+    for bit. float32 runs the fused row pass in its partials mode, whose
+    Aᵀy sums in a fixed order (the atomic mode adds in no fixed order, so
+    two eager runs differ too). CsrOp's segment sums are index_add, which
+    adds with atomics on a card, so its case runs under torch's
+    deterministic algorithms, where index_add sums in a sorted order."""
+    monkeypatch.setattr(pf, "PARTIALS_MIN_COLS", 0)
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    solver = TP.PdlpSolver(prob, _f32_pdlp_settings(), device=cuda)
+    dev = TP.build_device_problem(prob, solver.hp, dtype, kind, cuda)
+    assert type(dev.op).__name__ == \
+        ("CsrOp" if kind == "csr" else "BlockBandOp")
+    fused = TP._use_fused(dev, dtype, solver.cfg)
+    assert fused == (dtype == torch.float32)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(kind == "csr")
+    try:
+        eager_s = graph_s = TP.initial_state(dev, solver.hp, dtype)
+        driver = TP.PingPongMajor(solver.cfg)
+        for k in range(3):
+            eager_s, _ = TP.major_iteration(dev, eager_s, solver.cfg)
+            pf.reset_counts()
+            graph_s, _ = driver(dev, graph_s)
+            launches = pf.ROW_PASS_PARTIALS.launches
+            for f in dataclasses.fields(TP.SolverState):
+                assert torch.equal(getattr(eager_s, f.name),
+                                   getattr(graph_s, f.name)), (k, f.name)
+            if k == 0:
+                attempts0 = int(graph_s.total_attempts)
+                assert launches == (attempts0 if fused else 0)
+        assert driver.graphs is not None
+        assert driver.slots == int(graph_s.total_attempts)
+        assert int(graph_s.total_attempts) > int(graph_s.total_steps)
+        if fused:  # the partials kernel left its arrival counts at 0
+            assert pf.plan(dev.op).counters.eq(0).all()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def test_capture_beside_a_thread_replaying_its_graph(cuda):
+    """The MIP's pattern: FJ's thread replays its CUDA graphs on a stream
+    of its own while a PDLP solve, in another thread, captures its
+    slots (thread-local capture mode). Both go on, and the solve runs
+    every attempt through the graph driver."""
+    stop, errors, replays = threading.Event(), [], [0]
+
+    def replaying():
+        try:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                v = torch.zeros(1 << 16, device=cuda)
+                v.add_(1.0)
+                g = torch.cuda.CUDAGraph()
+                g.capture_begin(capture_error_mode="thread_local")
+                v.add_(1.0)
+                g.capture_end()
+                while not stop.is_set():
+                    g.replay()
+                    replays[0] += 1
+                    time.sleep(0)
+                side.synchronize()
+            assert float(v[0]) == replays[0] + 1
+        except Exception as e:  # reported by the assertion below
+            errors.append(e)
+
+    t = threading.Thread(target=replaying)
+    t.start()
+    try:
+        while not replays[0] and t.is_alive():
+            time.sleep(0.001)
+        prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+        sol = solve_lp(prob, _f32_pdlp_settings(), device=cuda)
+        seen = replays[0]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    info = sol.get_additional_termination_information()
+    assert sol.get_termination_reason() == "Optimal"
+    assert info["graph_slots"] == info["attempts"] > 0
+    assert seen > 0
+
+
+def test_solves_leave_no_memory_behind(cuda):
+    """Every solve captures its graphs on this thread's one capture
+    stream: a new stream per solve would keep a cuBLAS workspace (32 MiB
+    on an H100) each time, until torch's pool of 32 streams wraps."""
+    def solve(seed):
+        prob = generate_lp(3000, 3000, 6, seed=seed, band=96)
+        sol = solve_lp(prob, _f32_pdlp_settings(), device=cuda)
+        assert sol.get_termination_reason() == "Optimal"
+
+    solve(1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    for seed in (2, 3, 4):
+        solve(seed)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before < 1 << 20
+    assert len(TP._CAPTURE.streams) == 1
+
+
+def test_profiled_solve_traces_a_row_pass_an_attempt(cuda):
+    """Under torch.profiler the captured and replayed solve still shows
+    one row-pass kernel an attempt on the device (the benchmark's
+    row_pass_roofline counts them by name), one capture span, and at most
+    four step-count reads a major."""
+    from torch.autograd import DeviceType
+
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sol = solve_lp(prob, _f32_pdlp_settings(), device=cuda)
+        torch.cuda.synchronize()
+    info = sol.get_additional_termination_information()
+    assert sol.get_termination_reason() == "Optimal"
+    events = prof.events()
+    passes = [e for e in events if e.device_type == DeviceType.CUDA
+              and "row_pass_one_pass" in e.name]
+    assert len(passes) == info["attempts"] > 0
+    names = [e.name for e in events if e.device_type == DeviceType.CPU]
+    majors = names.count("pdlp_major_readback")
+    assert majors >= 1
+    assert names.count("pdlp_graph_capture") == 1
+    assert names.count("pdlp_step_sync") <= 4 * majors
+    assert names.count("pdlp_step_sync") == info["graph_count_reads"]
 
 
 def _f32_pdlp_settings(**kw):

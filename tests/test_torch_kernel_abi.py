@@ -50,8 +50,8 @@ def _ctype_of(c_type: str):
 
 
 def test_every_entry_point_is_declared():
-    declared = {k.name for k in pf.KERNELS} | {"row_pass_config",
-                                                "cuda_error_string"}
+    declared = {k.name for k in pf.KERNELS} | {
+        "row_pass_config", "row_pass_launches", "cuda_error_string"}
     assert set(_prototypes()) == declared
 
 
@@ -71,6 +71,15 @@ def test_config_argtypes_match_the_prototype():
     ret, params = _prototypes()["row_pass_config"]
     assert ret == "int"
     assert [_ctype_of(c) for c in params] == pf.CONFIG_ARGS
+
+
+def test_count_argtypes_match_the_prototype():
+    ret, params = _prototypes()["row_pass_launches"]
+    assert ret == "int"
+    assert [_ctype_of(c) for c in params] == pf.COUNT_ARGS
+    assert params[-1] == "unsigned long long*"  # ctypes.c_ulonglong
+    # each kernel reads its own count, the partials mode's at index 1
+    assert [k.partials for k in pf.KERNELS] == [0, 1]
 
 
 def test_error_string_exists():

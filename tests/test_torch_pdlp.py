@@ -677,3 +677,84 @@ def test_device_cache_follows_in_place_changes():
     prob.objective_coefficients[0] = -2.0
     dev3 = T.build_device_problem(prob, hp, torch.float64, device="cpu")
     assert dev3 is not dev2 and float(dev3.c_orig[0]) == -2.0
+
+
+# ------------------------------------------- the graph driver, off a card
+def _assert_equal_tensors(a, b, where):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _assert_equal_tensors(a[k], b[k], (where, k))
+    else:
+        assert torch.equal(a, b), where
+
+
+def _slot_parity(prob, dtype, kind, cfg_kw, majors=3):
+    """`major_iteration` and `PingPongMajor` (each replay running `_slot`
+    eagerly, in its rounds of replays) for `majors` majors from one state:
+    every SolverState field and every report entry equal, bit for bit.
+    Returns the eager state and the PingPongMajor."""
+    solver = T.PdlpSolver(prob, TSettings(), device="cpu")
+    cfg = dataclasses.replace(solver.cfg, **cfg_kw)
+    dev = T.build_device_problem(prob, solver.hp, dtype, kind, "cpu")
+    eager_s = slot_s = T.initial_state(dev, solver.hp, dtype)
+    eager, driver = T.make_major_fn(cfg), T.PingPongMajor(cfg)
+    for k in range(majors):
+        eager_s, eager_r = eager(dev, eager_s)
+        slot_s, slot_r = driver(dev, slot_s)
+        for f in dataclasses.fields(T.SolverState):
+            _assert_equal_tensors(getattr(eager_s, f.name),
+                                  getattr(slot_s, f.name), (k, f.name))
+        _assert_equal_tensors(eager_r, slot_r, k)
+    # one slot an attempt; at least one count read a major
+    assert driver.slots == int(eager_s.total_attempts)
+    assert driver.count_reads >= majors
+    return eager_s, driver
+
+
+@pytest.mark.parametrize("cap", [64, 2])
+@pytest.mark.parametrize("kind", ["auto", "blockband"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ping_pong_slots_equal_eager_majors(dtype, kind, cap):
+    """Under the default cap, a staircase whose 120 steps take more
+    attempts than steps, so slots are rejected; under a cap of 2,
+    degen-transport, one of whose steps takes 3 attempts uncapped, so the
+    cap forces an accept (the capped path leaves the uncapped one)."""
+    if cap == 64:
+        prob = t_generate(384, 384, 5, seed=11, band=64)
+    else:
+        prob = T_GEN["degen-transport"](300, 0)
+    s, driver = _slot_parity(prob, dtype, kind, dict(max_step_attempts=cap))
+    assert int(s.total_attempts) > int(s.total_steps) == 120
+    assert driver.count_reads > 3  # a rejection costs the major a read
+    if cap == 2:
+        uncapped, _ = _slot_parity(prob, dtype, kind, {}, majors=1)
+        capped, _ = _slot_parity(prob, dtype, kind, dict(max_step_attempts=2),
+                                 majors=1)
+        assert not torch.equal(uncapped.x, capped.x)
+
+
+def test_ping_pong_slots_equal_eager_majors_on_the_fused_pass():
+    """The branch a float32 block band takes on the card: the fused row
+    pass, here its plain version, once an attempt in either driver."""
+    prob = t_generate(384, 384, 5, seed=11, band=64)
+    tf.reset_counts()
+    s, driver = _slot_parity(prob, torch.float32, "blockband",
+                             dict(fused_kernel="on"))
+    assert tf.PlainCount.calls == 2 * int(s.total_attempts) > 0
+    assert driver.graphs is None  # off a card nothing is captured
+
+
+def test_slot_refuses_a_field_list_that_differs_from_accept(monkeypatch):
+    """The slot's buffers hold `_SLOT_FIELDS`; a field `_accept` writes
+    that the list lacks would be dropped from the graph path's state, so
+    the slot refuses to run with such a list."""
+    prob = t_generate(96, 96, 4, seed=3, band=16)
+    solver = T.PdlpSolver(prob, TSettings(), device="cpu")
+    dev = T.build_device_problem(prob, solver.hp, torch.float64, "auto",
+                                 "cpu")
+    s = T.initial_state(dev, solver.hp, torch.float64)
+    monkeypatch.setattr(T, "_SLOT_FIELDS", tuple(
+        f for f in T._SLOT_FIELDS if f != "numerical_error"))
+    with pytest.raises(AssertionError, match="numerical_error"):
+        T.PingPongMajor(solver.cfg)(dev, s)

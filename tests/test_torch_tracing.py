@@ -37,6 +37,7 @@ PARENT = {
     "pdlp_scaling": "pdlp_build",
     "pdlp_pdhg_steps": "pdlp_run",
     "pdlp_step_sync": "pdlp_pdhg_steps",
+    "pdlp_graph_capture": "pdlp_pdhg_steps",
     "pdlp_termination": "pdlp_run",
     "pdlp_restart": "pdlp_run",
     "pdlp_major_readback": "pdlp_run",
@@ -46,8 +47,9 @@ PARENT = {
 MODULE_SPANS = {
     "cuopt_torch/lp/pdlp.py": {
         "pdlp_run", "pdlp_build", "device_upload", "pdlp_scaling",
-        "pdlp_pdhg_steps", "pdlp_step_sync", "pdlp_termination",
-        "pdlp_restart", "pdlp_major_readback", "pdlp_answer"},
+        "pdlp_pdhg_steps", "pdlp_step_sync", "pdlp_graph_capture",
+        "pdlp_termination", "pdlp_restart", "pdlp_major_readback",
+        "pdlp_answer"},
     "cuopt_torch/sparse/ops.py": {
         "sparse_band_layout", "sparse_reorder", "device_upload"},
 }
