@@ -16,7 +16,9 @@ metric and unit. Prints ONE JSON line last:
      column permutation; "auto" recovers the band by reordering.
 
 Each instance is built (build_device_problem, initial_state), run for
-WARMUP_MAJORS majors, then timed over BENCH_MAJORS majors; the window
+WARMUP_MAJORS majors, then timed over BENCH_MAJORS majors of
+make_major_fn's step driver, the loop solve_lp runs (CUDA-graph replays
+on the card); the window
 ends in the report's total_steps readback, which waits for the device.
 Build and warm-up times are reported apart from it, and so is the nvcc
 build of the kernels at first use (0 when the library was already

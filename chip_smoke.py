@@ -1034,12 +1034,13 @@ def batch_majors_check(name, members, s, majors=3):
     devs = [pdlp.cached_device_problem(m) for m in members]
     states = [pdlp.initial_state(d, solver.hp, solver.dtype) for d in devs]
     fns = TB._batched_fns(cfg, devs[0], states[0])
+    solos = [pdlp.make_major_fn(cfg) for _ in members]
     dev_b = TB._stack(devs)
     worst = 0.0
     for k in range(majors):
         st_b, rep = TB._batched_major(fns, dev_b, TB._stack(states), cfg)
         for b in range(len(members)):
-            states[b], r = pdlp.major_iteration(devs[b], states[b], cfg)
+            states[b], r = solos[b](devs[b], states[b])
             require(int(r["total_attempts"]) ==
                     int(rep["total_attempts"][b]),
                     f"{name} member {b}: attempts differ in major {k}")

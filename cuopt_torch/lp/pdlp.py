@@ -10,14 +10,14 @@ device:
     the host reads ONE packed tensor of scalars per major (the
     reference's termination readback cadence, pdlp.cu:1081).
   - The adaptive step-size loop over attempts (reference
-    step_size_strategy/adaptive_step_size_strategy.hpp:35) runs two ways.
-    A solo solve on a card (`PdlpSolver._run`) replays a predicated
-    attempt (`_slot`) as a ping-pong pair of CUDA graphs
-    (`PingPongMajor`, the reference's ping_pong_graph.cuh): the attempt's
-    `valid` flag decides on the device whether it commits, and the host
-    reads one step count per round of replays. Everywhere else (CPU
-    solves, a mesh, lp/batch.py) `_take_step` is a host loop that reads
-    the flag: one device sync per attempt. Both give the same iterates.
+    step_size_strategy/adaptive_step_size_strategy.hpp:35) is a
+    predicated attempt (`_slot`): its `valid` flag decides on the device
+    whether it commits, and the host runs slots in rounds and reads one
+    step count a round (`PingPongMajor`, the reference's
+    ping_pong_graph.cuh). On CUDA tensors with no mesh each slot is a
+    replay of one of two CUDA graphs; on the CPU and on every shard of a
+    mesh it runs eagerly. lp/batch.py runs its own masked loop over the
+    same attempt.
   - On a CUDA float32 BlockBandOp every attempt runs the fused row pass
     (lp/pdhg_fused.py, kernels in csrc/row_pass.cu); otherwise the
     unfused matvec -> dual prox -> rmatvec chain.
@@ -43,7 +43,6 @@ import hashlib
 import threading
 import time
 from dataclasses import dataclass
-from functools import partial
 from types import SimpleNamespace
 
 import numpy as np
@@ -381,30 +380,6 @@ def _accept(s: SolverState, cand, eta, eta_next, attempts) -> SolverState:
     )
 
 
-def _take_step(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
-    """One PDHG step with Malitsky-Pock adaptive step size (reference
-    pdlp.cu take_step :1188 + adaptive_step_size_strategy), as a host
-    loop over attempts. The eager path: CPU solves and every shard of a
-    mesh run it; a solo solve on a card replays `_slot` instead
-    (`PingPongMajor`), which gives the same iterates."""
-    grad = dev.c - s.aty
-    eta = s.step_size
-    attempts = 0
-    while True:
-        cand, valid, eta_next = _attempt(dev, s, cfg, grad, eta, attempts)
-        attempts += 1
-        if attempts >= cfg.max_step_attempts:
-            break
-        # one device sync per attempt (see module docstring)
-        with trace_scope("pdlp_step_sync"):
-            accepted = bool(valid)
-        if accepted:
-            break
-        eta = eta_next
-    debug_assert(eta_next > 0.0, "PDHG step size must stay positive")
-    return _accept(s, cand, eta, eta_next, attempts)
-
-
 # ========================================================== infeasibility
 def _ray_scores(dev: DeviceProblem, x_ray, y_ray):
     """Infeasibility certificates from ray candidates (reference
@@ -660,16 +635,6 @@ def _maybe_restart(dev: DeviceProblem, s: SolverState, cfg: StaticCfg,
 
 
 # ============================================================ major chunk
-def major_iteration(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
-    """`major_iteration` PDHG steps + termination info + restart. Returns
-    (state, report); every entry of the report is a tensor on the
-    device."""
-    with trace_scope("pdlp_pdhg_steps"):
-        for _ in range(cfg.hp.major_iteration):
-            s = _take_step(dev, s, cfg)
-    return major_tail(dev, s, cfg)
-
-
 def major_tail(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
     """Termination information and the restart after a major's steps.
     Returns (state, report). Pure tensor code with no host sync, so
@@ -755,23 +720,13 @@ def major_tail(dev: DeviceProblem, s: SolverState, cfg: StaticCfg):
     return s, report
 
 
-def make_major_fn(cfg: StaticCfg):
+def make_major_fn(cfg: StaticCfg) -> "PingPongMajor":
     """The major-iteration function for this configuration:
-    (dev, state) -> (state, report). Given a ShardedProblem and its
-    ShardedState (parallel/sharding.py) it runs the major on every shard
-    under run_spmd and returns the report whole on the first shard's
-    device, with the run's collectives and bytes exchanged."""
-    one = partial(major_iteration, cfg=cfg)
-
-    def major(dev, s):
-        if isinstance(dev, ShardedProblem):
-            return sharded_major(one, dev, s)
-        return one(dev, s)
-
-    return major
+    (dev, state) -> (state, report), a `PingPongMajor`."""
+    return PingPongMajor(cfg)
 
 
-# ============================================================ graph driver
+# ============================================================ step driver
 # the state's fields a slot writes, `_accept`'s; the others (the primal
 # weight and the restart bookkeeping) change only in major_tail. `_slot`
 # checks the list against what `_accept` writes.
@@ -782,10 +737,11 @@ _SLOT_FIELDS = ("x", "y", "ax", "aty", "step_size", "sum_weights", "avg_x",
 
 def _slot(dev: DeviceProblem, s: SolverState, pending, cfg: StaticCfg,
           out: SolverState, out_pending):
-    """One attempt of `_take_step` with its predicate on the device:
-    `pending` (0-d int64) is the attempt's 0-based index within its step,
-    as `_take_step`'s `attempts`. The attempt commits when it is valid or
-    at the attempt cap: `out` then holds `_accept`'s state and
+    """One attempt of a PDHG step with Malitsky-Pock adaptive step size
+    (reference pdlp.cu take_step :1188 + adaptive_step_size_strategy),
+    its predicate on the device: `pending` (0-d int64) is the attempt's
+    0-based index within its step. The attempt commits when it is valid
+    or at the attempt cap: `out` then holds `_accept`'s state and
     `out_pending` 0. Otherwise the iterates and averages stay, the step
     size becomes the next attempt's and `out_pending` is `pending + 1`.
     Writes only `out`'s _SLOT_FIELDS and `out_pending`, with no host sync;
@@ -826,58 +782,74 @@ def _capture_stream(device) -> torch.cuda.Stream:
 
 
 class PingPongMajor:
-    """The major-iteration function of a solo solve on a card
-    (`PdlpSolver._run`): a major's steps as replays of `_slot`, then
-    `major_tail` eagerly. Same signature and same iterates as
-    `major_iteration`, which the CPU, the mesh and lp/batch.py run.
+    """The major-iteration function of every PDLP solve (`make_major_fn`,
+    `PdlpSolver._run`): a major's steps as rounds of `_slot`, then
+    `major_tail`. (dev, state) -> (state, report).
 
-    Two buffers hold the state: graph k reads buffer k and writes buffer
-    1 - k, so replays alternate (the reference's ping-pong graph,
+    Two buffers hold the state: slot k reads buffer k and writes buffer
+    1 - k, so slots alternate (the reference's ping-pong graph,
     ping_pong_graph.cuh, pdhg.cu:191-200). Each slot commits at most one
     step, so with `done` of the major's `quota` steps known, the next
-    `quota - done` slots cannot overshoot: the host replays them, then
-    reads the count (one int64) and goes on until it is the quota. With a
-    few percent of attempts rejected, a major reads two or three counts
-    where the eager loop reads one flag an attempt.
+    `quota - done` slots cannot overshoot: the host runs them, then reads
+    the count (one int64) and goes on until it is the quota. With a few
+    percent of attempts rejected, a major reads two or three counts.
 
-    The graphs are captured at the first major, on the thread's capture
-    stream in thread-local mode (the MIP's FJ thread replays its own
-    graphs meanwhile). The major's first slot runs eagerly on that stream
-    before the capture: it loads the row-pass library, its plan and
-    cuBLAS there, and, a slot being a pure function of its input buffer,
-    it gives what a replay of graph 0 would. The row-pass kernels count
-    their own launches on the device (`Kernel.launches`), so the eager
-    slot and each replay count one and the capture none: one an attempt.
-    The replays and the eager tail, which runs no row pass, go on one
-    stream, so no replayed partials pass overlaps an eager one on the
-    operator (`RowPassPlan.counters`).
+    On CUDA tensors and an operator with no comm (a solo solve on a card)
+    each slot is a replay of one of two CUDA graphs. They are captured at
+    the first major, on the thread's capture stream in thread-local mode
+    (the MIP's FJ thread replays its own graphs meanwhile). The major's
+    first slot runs eagerly on that stream before the capture: it loads
+    the row-pass library, its plan and cuBLAS there, and, a slot being a
+    pure function of its input buffer, it gives what a replay of graph 0
+    would. The row-pass kernels count their own launches on the device
+    (`Kernel.launches`), so the eager slot and each replay count one and
+    the capture none: one an attempt. The replays and the eager tail,
+    which runs no row pass, go on one stream, so no replayed partials
+    pass overlaps an eager one on the operator (`RowPassPlan.counters`).
+    Everywhere else (CPU tensors, a shard of a mesh) each slot runs
+    eagerly, in the same rounds, buffers and reads.
 
-    One driver serves one solve on one stream: its buffers and graphs
-    hold the device problem of its first call, and its later majors run
-    on the stream that call ran on. Off a card a replay runs the slot
-    eagerly: the CPU tests drive the same rounds, buffers and reads.
-    `slots` and `count_reads` count the slots run and the counts read
-    over the solve."""
+    Given a ShardedProblem and its ShardedState (parallel/sharding.py) it
+    runs the major on every shard under run_spmd (`sharded_major`), each
+    shard with two buffers of its own and the problem it is handed. The
+    shards run the same rounds, since `valid` comes from psum'd sums, the
+    same bits on every shard. The report comes whole on the first
+    shard's device, with the run's collectives and bytes exchanged.
+
+    The buffers and graphs belong to the problem of the last call: a
+    call with another problem allocates new buffers and captures anew.
+    A state or report a major returns shares tensors with the buffers,
+    which the next major of the same problem overwrites: keep one across
+    it only as a copy. Later majors run on the stream the capture's call
+    ran on. `slots` and `count_reads` count the slots run and the counts
+    read (on a mesh, the first shard's)."""
 
     def __init__(self, cfg: StaticCfg):
         self.cfg = cfg
-        self.dev = None
+        self.dev = None  # the problem of the buffers and graphs
         self.bufs = None  # two SolverStates sharing their non-slot fields
         self.pending = None  # each buffer's 0-d int64 attempt index
         self.graphs = None
         self.slots = 0
         self.count_reads = 0
 
-    def __call__(self, dev: DeviceProblem, s: SolverState):
+    def __call__(self, dev, s):
+        if isinstance(dev, ShardedProblem):
+            return sharded_major(self._shard_major, dev, s)
+        return major_tail(dev, self.steps(dev, s), self.cfg)
+
+    def steps(self, dev: DeviceProblem, s: SolverState) -> SolverState:
+        """A major's PDHG steps from `s`: the state major_tail starts
+        from, one of the buffers."""
         quota = self.cfg.hp.major_iteration
         with trace_scope("pdlp_pdhg_steps"):
-            if self.bufs is None:
+            if dev is not self.dev:
                 self._allocate(dev, s)
             else:
                 self._load(s)
             start = self.bufs[0].total_steps.clone()
             cur, ahead = 0, 0  # ahead: slots run since the last count
-            if s.x.is_cuda and self.graphs is None:
+            if self.graphs is None and self._graphed(dev, s):
                 with trace_scope("pdlp_graph_capture"):
                     self._capture()
                 cur, ahead = 1, 1
@@ -896,10 +868,26 @@ class PingPongMajor:
                 ahead = 0
             debug_assert(self.bufs[cur].step_size > 0.0,
                          "PDHG step size must stay positive")
-        return major_tail(dev, self.bufs[cur], self.cfg)
+        return self.bufs[cur]
+
+    def _shard_major(self, dev, s):
+        """One shard's major, in its run_spmd thread: a driver of its own,
+        whose counts the first shard reports."""
+        lane = PingPongMajor(self.cfg)
+        out = lane(dev, s)
+        if dev.op.comm.rank == 0:
+            self.slots += lane.slots
+            self.count_reads += lane.count_reads
+        return out
+
+    @staticmethod
+    def _graphed(dev, s) -> bool:
+        """Whether the slots are CUDA-graph replays: CUDA tensors, and no
+        comm, whose collectives wait on other shards' threads."""
+        return s.x.is_cuda and getattr(dev.op, "comm", None) is None
 
     def _allocate(self, dev, s):
-        self.dev = dev
+        self.dev, self.graphs = dev, None
         b0 = s.replace(**{f.name: getattr(s, f.name).clone()
                           for f in dataclasses.fields(s)})
         b1 = b0.replace(**{f: torch.empty_like(getattr(b0, f))
@@ -1301,13 +1289,7 @@ class PdlpSolver:
         run_dev = dev
         if self.mesh is not None:
             run_dev, state = shard_problem_and_state(dev, state, self.mesh)
-        # a solo solve on a card replays its steps as CUDA graphs
-        graphed = None
-        if self.device.type == "cuda" and self.mesh is None and \
-                not isinstance(run_dev, ShardedProblem):
-            major_fn = graphed = PingPongMajor(self.cfg)
-        else:
-            major_fn = make_major_fn(self.cfg)
+        major_fn = make_major_fn(self.cfg)
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
         use_avg = False
@@ -1433,11 +1415,9 @@ class PdlpSolver:
                     max(time.perf_counter() - t_run0 - t_first_major, 0.0), 4),
                 "loop_steps": it - it0,
                 "loop_attempts": attempts - attempts0,
-                # the graph driver's slots (one an attempt) and count
-                # reads; 0 on the eager path
-                "graph_slots": 0 if graphed is None else graphed.slots,
-                "graph_count_reads":
-                    0 if graphed is None else graphed.count_reads,
+                # the step driver's slots (one an attempt) and count reads
+                "graph_slots": major_fn.slots,
+                "graph_count_reads": major_fn.count_reads,
             }
             if settings.save_best_primal_so_far and best_primal is not None \
                     and best_primal[0] < sol["primal_objective"]:

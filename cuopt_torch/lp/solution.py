@@ -8,8 +8,8 @@ reference's keys, the termination information carries the port's timing
 split (compile_s: the device problem's build plus the first major;
 build_s: the build alone, inside compile_s; solve_loop_s, loop_steps,
 loop_attempts: the majors after the first; graph_slots,
-graph_count_reads: the CUDA-graph driver's slots and step-count reads,
-0 off a card), a crossover's
+graph_count_reads: the PDHG step driver's slots, one an attempt, and
+its step-count reads), a crossover's
 pivots, the concurrent race's record ("race") and, when the PDLP leg of a
 race failed, its error ("pdlp_error"). A MIP solve adds its node count,
 gap and bound, the errors its heuristics caught ("heuristic_errors"), the

@@ -20,12 +20,11 @@ Here:
       device_upload          the build's host-to-device copies
       pdlp_scaling           compute_scaling
       pdlp_pdhg_steps        a major's PDHG steps
-      pdlp_step_sync         a host wait inside a major's steps: on the
-                             eager path an attempt's read of its `valid`
-                             flag, on the CUDA-graph path a round's read
-                             of the major's step count
-      pdlp_graph_capture     the graph driver's first slot and the
-                             capture of its two graphs, once a solve
+      pdlp_step_sync         a host wait inside a major's steps: a
+                             round's read of the major's step count
+      pdlp_graph_capture     the step driver's first slot and the
+                             capture of its two graphs, once a solve on
+                             a card
       pdlp_termination       a major's termination information
       pdlp_restart           a major's restart decision
       pdlp_major_readback    a major's one packed read of its scalars

@@ -8,7 +8,9 @@ Builds generate_lp(n, n, 8, seed=123, band=256) in float64 on the
 block-band operator and times one PDLP major (after a warm one) per
 layout: unsharded; 1, 2 and 4 shards on the first device; one shard per
 card when there are several; and 4 shards on the first device again at
-each interpreter switch interval of --switch-intervals. Prints, per
+each interpreter switch interval of --switch-intervals. Each major is
+make_major_fn's step driver: CUDA-graph replays unsharded on a card,
+eager slots on every shard. Prints, per
 layout, the wall and CUDA-event milliseconds per step and the major's
 collectives and bytes read across shards, beside each card's name and
 power limit.

@@ -60,19 +60,16 @@ def main() -> int:
             return solver.run()
         real = T.make_major_fn
 
-        def traced(cfg):
-            major = real(cfg)
-
-            def run_major(dev, state):
-                state, rep = major(dev, state)
+        class Traced(T.PingPongMajor):
+            def __call__(self, dev, state):
+                state, rep = super().__call__(dev, state)
                 print(f"    {int(rep['total_steps'])} steps, restart "
                       f"{bool(rep['did_restart'])}, kkt "
                       f"{float(rep['kkt_cur']):.3e}, since restart "
                       f"{int(state.iters_since_restart)}", flush=True)
                 return state, rep
-            return run_major
 
-        T.make_major_fn = traced
+        T.make_major_fn = Traced
         try:
             return solver.run()
         finally:

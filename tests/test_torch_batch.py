@@ -140,7 +140,7 @@ def test_batched_majors_match(kind, dense_limit):
             assert _rel(tr["info_cur"][key].numpy(), v) < 1e-8, (k, key)
         # the port's batched major against its own solo major
         for b in range(B):
-            s_b, r_b = T.major_iteration(t_devs[b], t_states[b], cfg)
+            s_b, r_b = T.make_major_fn(cfg)(t_devs[b], t_states[b])
             assert int(r_b["total_attempts"]) == \
                 int(tr["total_attempts"][b]), (k, b)
             assert _rel(t_st_b["x"][b].numpy(), s_b.x.numpy()) < 1e-10, \

@@ -198,18 +198,26 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     assert abs(got - want) <= 1e-3 * (1 + abs(want)), (got, want)
 
 
+def _eager_driver(cfg):
+    """A step driver whose slots run eagerly on the card too."""
+    driver = TP.make_major_fn(cfg)
+    driver._graphed = lambda dev, s: False
+    return driver
+
+
 @pytest.mark.parametrize("dtype, kind", [
     (torch.float32, "blockband"), (torch.float64, "blockband"),
     (torch.float64, "csr")])
 def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
                                                       dtype, kind):
-    """PingPongMajor's CUDA-graph replays against eager major_iteration,
-    three majors from one state on the card: every state field equal, bit
-    for bit. float32 runs the fused row pass in its partials mode, whose
-    Aᵀy sums in a fixed order (the atomic mode adds in no fixed order, so
-    two eager runs differ too). CsrOp's segment sums are index_add, which
-    adds with atomics on a card, so its case runs under torch's
-    deterministic algorithms, where index_add sums in a sorted order."""
+    """The step driver's CUDA-graph replays against the same driver with
+    every slot run eagerly, three majors from one state on the card:
+    every state field equal, bit for bit. float32 runs the fused row pass
+    in its partials mode, whose Aᵀy sums in a fixed order (the atomic
+    mode adds in no fixed order, so two eager runs differ too). CsrOp's
+    segment sums are index_add, which adds with atomics on a card, so its
+    case runs under torch's deterministic algorithms, where index_add
+    sums in a sorted order."""
     monkeypatch.setattr(pf, "PARTIALS_MIN_COLS", 0)
     prob = generate_lp(3000, 3000, 6, seed=11, band=96)
     solver = TP.PdlpSolver(prob, _f32_pdlp_settings(), device=cuda)
@@ -222,9 +230,9 @@ def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
     torch.use_deterministic_algorithms(kind == "csr")
     try:
         eager_s = graph_s = TP.initial_state(dev, solver.hp, dtype)
-        driver = TP.PingPongMajor(solver.cfg)
+        eager, driver = _eager_driver(solver.cfg), TP.make_major_fn(solver.cfg)
         for k in range(3):
-            eager_s, _ = TP.major_iteration(dev, eager_s, solver.cfg)
+            eager_s, _ = eager(dev, eager_s)
             pf.reset_counts()
             graph_s, _ = driver(dev, graph_s)
             launches = pf.ROW_PASS_PARTIALS.launches
@@ -234,13 +242,39 @@ def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
             if k == 0:
                 attempts0 = int(graph_s.total_attempts)
                 assert launches == (attempts0 if fused else 0)
-        assert driver.graphs is not None
-        assert driver.slots == int(graph_s.total_attempts)
+        assert eager.graphs is None and driver.graphs is not None
+        assert driver.slots == eager.slots == int(graph_s.total_attempts)
+        assert driver.count_reads == eager.count_reads
         assert int(graph_s.total_attempts) > int(graph_s.total_steps)
         if fused:  # the partials kernel left its arrival counts at 0
             assert pf.plan(dev.op).counters.eq(0).all()
     finally:
         torch.use_deterministic_algorithms(was)
+
+
+def test_graph_driver_recaptures_for_a_second_problem(cuda):
+    """A driver handed another problem captures new graphs for it and
+    gives that problem's majors: a 3k staircase, a 2k one, then the 3k
+    one again, each major equal bit for bit to a new driver's whose slots
+    run eagerly. They run in float64 on the block band: the fused
+    row pass's atomic mode sums Aᵀy in no fixed order."""
+    probs = [generate_lp(3000, 3000, 6, seed=11, band=96),
+             generate_lp(2048, 2048, 6, seed=3, band=96)]
+    solver = TP.PdlpSolver(probs[0], _f32_pdlp_settings(), device=cuda)
+    devs = [TP.build_device_problem(p, solver.hp, torch.float64,
+                                    "blockband", cuda) for p in probs]
+    driver = TP.make_major_fn(solver.cfg)
+    seen = []
+    for k, dev in enumerate((devs[0], devs[1], devs[0])):
+        s0 = TP.initial_state(dev, solver.hp, torch.float64)
+        want, _ = _eager_driver(solver.cfg)(dev, s0)
+        got, _ = driver(dev, s0)
+        assert driver.dev is dev and driver.graphs is not None
+        assert all(g is not driver.graphs for g in seen), k
+        seen.append(driver.graphs)
+        for f in dataclasses.fields(TP.SolverState):
+            assert torch.equal(getattr(want, f.name),
+                               getattr(got, f.name)), (k, f.name)
 
 
 def test_capture_beside_a_thread_replaying_its_graph(cuda):

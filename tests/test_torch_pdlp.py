@@ -308,7 +308,9 @@ def test_first_step_agrees_to_rounding():
     (j_dev, j_state, _, j_cfg, t_dev, t_state, _,
      t_cfg) = _from_cuopt_tpu(_unbounded(j_generate, cost=-1.0))
     js = jax.jit(lambda d, s: J._take_step(d, s, j_cfg))(j_dev, j_state)
-    ts = T._take_step(t_dev, t_state, t_cfg)
+    one = dataclasses.replace(
+        t_cfg, hp=dataclasses.replace(t_cfg.hp, major_iteration=1))
+    ts = T.make_major_fn(one).steps(t_dev, t_state)
     for name in ("x", "y", "ax", "aty", "step_size"):
         assert _gap(getattr(ts, name), getattr(js, name)) < 1e-15, name
     assert int(ts.total_attempts) == int(js.total_attempts)
@@ -397,8 +399,7 @@ def test_infeasibility_flags_match(case):
         t_state = T.state_from_arrays(_state_arrays(j_state), "cpu")
         # the flags read the iterates after the major's steps, before its
         # restart: score the same candidates both ways there
-        for _ in range(cfg.hp.major_iteration):
-            t_state = T._take_step(t_dev, t_state, cfg)
+        t_state = t_major.steps(t_dev, t_state)
         arrays = {f: getattr(t_state, f).numpy() for f in
                   ("x", "y", "x_last_restart", "y_last_restart")}
         rays = (((arrays["x"] - arrays["x_last_restart"]) * col,
@@ -465,10 +466,10 @@ def test_infeasibility_detection_matches(case, strict):
                                  "cpu")
     state = T.initial_state(dev, solver.hp, torch.float64)
     cfg = solver.cfg
+    driver = T.make_major_fn(cfg)
     streak, need = 0, 1 if strict else 2
     while streak < need:
-        for _ in range(cfg.hp.major_iteration):
-            state = T._take_step(dev, state, cfg)
+        state = driver.steps(dev, state)
         rays = [((state.y - state.y_last_restart) * dev.row_scale).numpy(),
                 (state.y * dev.row_scale).numpy()]
         state, report = T.major_tail(dev, state, cfg)
@@ -679,7 +680,7 @@ def test_device_cache_follows_in_place_changes():
     assert dev3 is not dev2 and float(dev3.c_orig[0]) == -2.0
 
 
-# ------------------------------------------- the graph driver, off a card
+# ------------------------------------------- the step driver, off a card
 def _assert_equal_tensors(a, b, where):
     if isinstance(a, dict):
         assert a.keys() == b.keys(), where
@@ -689,18 +690,34 @@ def _assert_equal_tensors(a, b, where):
         assert torch.equal(a, b), where
 
 
+def _oracle_major(dev, s, cfg):
+    """A major as a host loop over attempts, each reading its `valid`
+    flag (the reference's take_step, pdlp.cu:1188): the driver's oracle."""
+    for _ in range(cfg.hp.major_iteration):
+        grad, eta, attempts = dev.c - s.aty, s.step_size, 0
+        while True:
+            cand, valid, eta_next = T._attempt(dev, s, cfg, grad, eta,
+                                               attempts)
+            attempts += 1
+            if attempts >= cfg.max_step_attempts or bool(valid):
+                break
+            eta = eta_next
+        s = T._accept(s, cand, eta, eta_next, attempts)
+    return T.major_tail(dev, s, cfg)
+
+
 def _slot_parity(prob, dtype, kind, cfg_kw, majors=3):
-    """`major_iteration` and `PingPongMajor` (each replay running `_slot`
-    eagerly, in its rounds of replays) for `majors` majors from one state:
-    every SolverState field and every report entry equal, bit for bit.
-    Returns the eager state and the PingPongMajor."""
+    """`_oracle_major` and the step driver (each slot run eagerly, in its
+    rounds) for `majors` majors from one state: every SolverState field
+    and every report entry equal, bit for bit. Returns the oracle's state
+    and the driver."""
     solver = T.PdlpSolver(prob, TSettings(), device="cpu")
     cfg = dataclasses.replace(solver.cfg, **cfg_kw)
     dev = T.build_device_problem(prob, solver.hp, dtype, kind, "cpu")
     eager_s = slot_s = T.initial_state(dev, solver.hp, dtype)
-    eager, driver = T.make_major_fn(cfg), T.PingPongMajor(cfg)
+    driver = T.make_major_fn(cfg)
     for k in range(majors):
-        eager_s, eager_r = eager(dev, eager_s)
+        eager_s, eager_r = _oracle_major(dev, eager_s, cfg)
         slot_s, slot_r = driver(dev, slot_s)
         for f in dataclasses.fields(T.SolverState):
             _assert_equal_tensors(getattr(eager_s, f.name),
@@ -736,7 +753,8 @@ def test_ping_pong_slots_equal_eager_majors(dtype, kind, cap):
 
 def test_ping_pong_slots_equal_eager_majors_on_the_fused_pass():
     """The branch a float32 block band takes on the card: the fused row
-    pass, here its plain version, once an attempt in either driver."""
+    pass, here its plain version, once an attempt in the oracle and in
+    the driver."""
     prob = t_generate(384, 384, 5, seed=11, band=64)
     tf.reset_counts()
     s, driver = _slot_parity(prob, torch.float32, "blockband",
@@ -747,8 +765,8 @@ def test_ping_pong_slots_equal_eager_majors_on_the_fused_pass():
 
 def test_slot_refuses_a_field_list_that_differs_from_accept(monkeypatch):
     """The slot's buffers hold `_SLOT_FIELDS`; a field `_accept` writes
-    that the list lacks would be dropped from the graph path's state, so
-    the slot refuses to run with such a list."""
+    that the list lacks would be dropped from the driver's state, so the
+    slot refuses to run with such a list."""
     prob = t_generate(96, 96, 4, seed=3, band=16)
     solver = T.PdlpSolver(prob, TSettings(), device="cpu")
     dev = T.build_device_problem(prob, solver.hp, torch.float64, "auto",
@@ -758,3 +776,34 @@ def test_slot_refuses_a_field_list_that_differs_from_accept(monkeypatch):
         f for f in T._SLOT_FIELDS if f != "numerical_error"))
     with pytest.raises(AssertionError, match="numerical_error"):
         T.PingPongMajor(solver.cfg)(dev, s)
+
+
+def test_driver_follows_a_second_problem():
+    """A driver handed another problem allocates anew and runs that
+    problem's majors: the staircase, then degen-transport (other shapes),
+    then the staircase again, each major equal to the oracle's bit for
+    bit. A state the first major returned outlives the majors of the
+    other problem and the staircase's new buffers."""
+    probs = [t_generate(384, 384, 5, seed=11, band=64),
+             T_GEN["degen-transport"](300, 0)]
+    solver = T.PdlpSolver(probs[0], TSettings(), device="cpu")
+    devs = [T.build_device_problem(p, solver.hp, torch.float64, "auto",
+                                   "cpu") for p in probs]
+    assert devs[0].op.shape != devs[1].op.shape
+    driver = T.make_major_fn(solver.cfg)
+    kept = None
+    for k, dev in enumerate((devs[0], devs[1], devs[0])):
+        s0 = T.initial_state(dev, solver.hp, torch.float64)
+        want_s, want_r = _oracle_major(dev, s0, solver.cfg)
+        got_s, got_r = driver(dev, s0)
+        assert driver.dev is dev
+        for f in dataclasses.fields(T.SolverState):
+            _assert_equal_tensors(getattr(want_s, f.name),
+                                  getattr(got_s, f.name), (k, f.name))
+        _assert_equal_tensors(want_r, got_r, k)
+        if k == 0:
+            kept, kept_copy = got_s, {
+                f.name: getattr(got_s, f.name).clone()
+                for f in dataclasses.fields(T.SolverState)}
+    for name, v in kept_copy.items():
+        assert torch.equal(getattr(kept, name), v), name

@@ -80,6 +80,25 @@ def test_sharded_full_solve():
                    np.abs(prob.constraint_upper_bounds))))
 
 
+def test_sharded_solve_runs_the_step_driver():
+    """A solve on 8 CPU shards runs every shard's steps as the step
+    driver's slots: one slot an attempt and a few count reads a major,
+    the first shard's counts, as the unsharded solve reports them."""
+    s = PDLPSolverSettings()
+    s.log_to_console = False
+    s.operator_kind = "blockband"
+    s.iteration_limit = 80
+    prob = generate_lp(1024, 1024, 6, seed=11, band=192)
+    raws = [PdlpSolver(prob, s, "cpu", mesh=mesh).run()
+            for mesh in (make_mesh(devices=CPU8), None)]
+    for raw in raws:
+        assert raw["iterations"] == 80
+        assert raw["graph_slots"] == raw["attempts"] >= 80
+        assert 2 <= raw["graph_count_reads"] <= raw["attempts"]
+    keys = ("attempts", "graph_slots", "graph_count_reads")
+    assert [raws[0][k] for k in keys] == [raws[1][k] for k in keys]
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
     serve(globals())

@@ -153,9 +153,10 @@ def test_band_path_spans_nest_by_layer(shuffled):
         assert (parent and parent.name) == PARENT[e.name], e.name
     # the build is timed apart, inside the first major's time
     assert 0 < info["build_s"] <= info["compile_s"]
-    # one sync per attempt (none reaches the attempt cap here) and one
-    # readback per major
-    assert count["pdlp_step_sync"] == info["attempts"] >= info["iterations"]
+    # one slot an attempt, one sync per step-count read, and one readback
+    # per major
+    assert info["graph_slots"] == info["attempts"] >= info["iterations"]
+    assert count["pdlp_step_sync"] == info["graph_count_reads"] >= 3
     per_major = PdlpSolver(prob, s, "cpu").hp.major_iteration
     majors = info["iterations"] // per_major
     assert count["pdlp_major_readback"] == count["pdlp_termination"] == \
@@ -163,8 +164,9 @@ def test_band_path_spans_nest_by_layer(shuffled):
 
 
 def test_attempt_cap_reads_no_flag():
-    """An attempt at the cap is taken without reading its flag: with a
-    cap of one, a solve syncs once a major and never per step."""
+    """An attempt at the cap commits without a flag read: with a cap of
+    one, every slot commits, so a solve reads one step count a major and
+    syncs never per step."""
     prob, s = _band_lp(False)
     s.iteration_limit = 80
     solver = PdlpSolver(prob, s, device="cpu")
@@ -172,7 +174,7 @@ def test_attempt_cap_reads_no_flag():
     raw, spans = _profiled(solver.run)
     names = [e.name for e in spans]
     assert raw["attempts"] == raw["iterations"] == 80
-    assert "pdlp_step_sync" not in names
+    assert names.count("pdlp_step_sync") == raw["graph_count_reads"] == 2
     assert names.count("pdlp_major_readback") == 2
 
 
