@@ -2,8 +2,9 @@
 
 The reference uses cusparse CSR SpMV (cpp/src/linear_programming/
 cusparse_view.hpp:30) for the PDHG hot pair Ax / A^T y. The operator is
-chosen per problem, with the same host builders (and therefore the same
-layouts) as cuopt_tpu/sparse/ops.py:
+chosen per problem, with the same layouts as cuopt_tpu/sparse/ops.py
+(the block band's built with tensor ops on the operator's device, the
+others on the host):
 
   - DenseOp: A stored dense; matvec is one matrix-vector product.
   - EllOp: ELLPACK (padded fixed-width rows) for A and for A^T.
@@ -190,10 +191,9 @@ class CsrOp(LinearOperator):
 
 def _window_index(starts, width, device):
     """(T, width) gather index of each tile's window (one index gather
-    replaces T slices)."""
-    idx = np.add.outer(np.asarray(starts, np.int64),
-                       np.arange(width, dtype=np.int64))
-    return torch.as_tensor(idx.reshape(len(starts), width), device=device)
+    replaces T slices), made on `device` from the T starts."""
+    s = torch.tensor(starts, dtype=torch.int64, device=device)
+    return s[:, None] + torch.arange(width, device=device)
 
 
 @dataclass
@@ -204,8 +204,9 @@ class BlockBandOp(LinearOperator):
     matvec is a batched (T, tile, W) x (T, W) product plus a small COO
     "spill" segment sum for the entries outside their tile's window. A
     transposed band (col tiles x row windows) of the same matrix serves
-    rmatvec, with its own spill. Layout and builder are those of
-    cuopt_tpu/sparse/ops.py:198, so both packages build the same slabs.
+    rmatvec, with its own spill. The layout is that of
+    cuopt_tpu/sparse/ops.py:198, bit for bit; build_block_band computes
+    it on the operator's device.
     """
 
     n_rows: int
@@ -895,65 +896,120 @@ def operator_from_arrays(d: dict, device) -> LinearOperator:
     return cls(**kw)
 
 
-# ----------------------------------------------------------- host builders
+# ------------------------------------------------------------ band layout
 _ALIGN = 128  # window starts are 128-aligned: the fused row pass
 # (lp/pdhg_fused.py) and cuopt_tpu's Pallas kernel both take starts in
 # 128-column units
+# an empty tile's start before it is set to 0: above every column
+_FAR = 2 ** 62
 
 
-def _tile_windows(offsets, indices, n_axis, tile, W):
-    """Per-tile window starts for width W, placed on the densest
-    128-ALIGNED window of each tile's (sorted) column indices.
-    Returns (starts (T,), inside mask over nnz)."""
-    T = (n_axis + tile - 1) // tile
-    starts = np.zeros(T, np.int64)
-    inside = np.zeros(offsets[-1], bool)
-    for t in range(T):
-        a = int(offsets[min(t * tile, n_axis)])
-        b = int(offsets[min((t + 1) * tile, n_axis)])
-        if b <= a:
-            continue
-        seg = np.sort(indices[a:b])
-        lo = (int(seg[0]) // _ALIGN) * _ALIGN
-        if int(seg[-1]) - lo < W:
-            s = lo
-        else:
-            # candidate aligned starts; count coverage via two pointers
-            cand = np.unique((seg // _ALIGN) * _ALIGN)
-            jj = np.searchsorted(seg, cand + W, side="left")
-            ii = np.searchsorted(seg, cand, side="left")
-            s = int(cand[int(np.argmax(jj - ii))])
-        starts[t] = s
-        inside[a:b] = (indices[a:b] >= s) & (indices[a:b] < s + W)
-    return starts, inside
+class _BandSide:
+    """One side of the band layout: the nonzeros of a matrix of `n_axis`
+    rows and `n_other` columns as row, column and value tensors in CSR
+    order (rows ascending, as the CSR stores them), and what the window
+    search of every candidate width shares. Everything is an exact
+    tensor op on the device of the tensors, so the layout is the same on
+    the card as on the CPU, and the same as cuopt_tpu's NumPy one.
+
+    A nonzero's key is t * S + col, for its tile t and a stride S >= the
+    column count that is a multiple of 128: `keys` holds them ascending.
+    The candidate starts are the distinct keys of (t, col // 128 * 128),
+    with the count of keys below each. `rank` numbers the repeats of a
+    (row, column) in CSR order, 0 for the first."""
+
+    def __init__(self, rows, cols, vals, n_axis, n_other, tile):
+        self.rows, self.cols, self.vals, self.tile = rows, cols, vals, tile
+        self.n_tiles = (n_axis + tile - 1) // tile
+        self.stride = -(-n_other // _ALIGN) * _ALIGN
+        self.t_of = rows // tile
+        # sorted by (tile, column, row in the tile): keys in order, and
+        # the repeats of a (row, column) side by side in CSR order
+        by, order = torch.sort(
+            (self.t_of * self.stride + cols) * tile + rows % tile,
+            stable=True)
+        self.keys = by // tile
+        # a repeat's rank: its place in `by` less its first copy's place
+        pos = torch.arange(len(by), device=rows.device)
+        self.rank = torch.empty_like(pos).scatter_(
+            0, order, pos - torch.searchsorted(by, by))
+        self.cand = torch.unique_consecutive(self.keys // _ALIGN * _ALIGN)
+        self.cand_t = self.cand // self.stride
+        self.cand_c = self.cand - self.cand_t * self.stride
+        self.cand_below = torch.searchsorted(self.keys, self.cand)
+
+    def full_widths(self):
+        """Per tile, the width a window from the 128-aligned start below
+        its least column needs to cover all its nonzeros (0 if none), and
+        the most repeats of one (row, column) beyond the first: one host
+        read."""
+        lo = self.t_of.new_full((self.n_tiles,), _FAR).scatter_reduce_(
+            0, self.t_of, self.cols, "amin")
+        hi = self.t_of.new_full((self.n_tiles,), -1).scatter_reduce_(
+            0, self.t_of, self.cols, "amax")
+        widths = torch.where(hi >= 0, hi - lo // _ALIGN * _ALIGN + 1, 0)
+        most = self.rank.max().view(1) if len(self.rank) \
+            else self.rank.new_zeros(1)
+        read = torch.cat([widths, most]).cpu().numpy()
+        return read[:-1], int(read[-1])
+
+    def windows(self, W):
+        """Each tile's window start for width W, where the window covers
+        the most of the tile's nonzeros (of the starts that tie, the
+        least, as np.argmax picks; 0 for a tile of none), and the mask of
+        the nonzeros inside their tile's window."""
+        end = self.cand + torch.clamp(self.stride - self.cand_c, max=W)
+        cover = torch.searchsorted(self.keys, end) - self.cand_below
+        best = self.t_of.new_zeros(self.n_tiles).scatter_reduce_(
+            0, self.cand_t, cover, "amax")
+        starts = self.t_of.new_full((self.n_tiles,), _FAR).scatter_reduce_(
+            0, self.cand_t,
+            torch.where(cover == best[self.cand_t], self.cand_c, _FAR),
+            "amin")
+        starts = torch.where(starts == _FAR, 0, starts)
+        s = starts[self.t_of]
+        return starts, (self.cols >= s) & (self.cols < s + W)
+
+    def slabs(self, W, starts, inside, most):
+        """(T, tile, W) slabs of the nonzeros inside their windows. The
+        repeats of a (row, column) add up as np.add.at adds them, (0 +
+        v1) + v2 + ... in CSR order: one round of adds per rank, rank 0
+        first, and no slab element twice in a round."""
+        flat = self.rows * W + self.cols - starts[self.t_of]
+        out = torch.zeros(self.n_tiles * self.tile * W,
+                          dtype=self.vals.dtype, device=flat.device)
+
+        def add(m):
+            i = flat[m]
+            out[i] = out[i] + self.vals[m]
+
+        add(inside & (self.rank == 0))
+        if most:
+            with trace_scope("sparse_layout_fold"):
+                for k in range(1, most + 1):
+                    add(inside & (self.rank == k))
+        return out.view(self.n_tiles, self.tile, W)
 
 
-def _band_slabs(offsets, indices, values, n_axis, n_other, tile,
-                np_dtype, spill_frac=0.15):
-    """Slab decomposition of a CSR matrix along `n_axis` rows.
+def _band_slabs(rows, cols, vals, n_axis, n_other, tile, spill_frac=0.15):
+    """Slab decomposition of a matrix of `n_axis` rows, given as the row,
+    column and value tensors of its nonzeros in CSR order.
 
     Picks the window width W (multiple of `tile`) of least modeled cost
     among the full width (zero spill), per-tile-width quantiles and a
     geometric ladder, subject to the spill staying under spill_frac * nnz
     and the slab budgets. Returns (slabs (T, tile, W), starts tuple, W,
-    (spill_vals, spill_rows, spill_cols)) or None if every candidate
-    blows the slab budget."""
-    T = (n_axis + tile - 1) // tile
-    nnz = len(values)
+    (spill_vals, spill_rows, spill_cols)) as tensors on the device of the
+    nonzeros, or None if every candidate blows the slab budget. The host
+    reads the tiles' full widths, each candidate's spill count and the
+    chosen starts."""
+    side = _BandSide(rows, cols, vals, n_axis, n_other, tile)
+    T = side.n_tiles
+    nnz = len(vals)
     # slab budget: up to ~256 stored elements per nonzero, and 3 GiB
     elem_budget = max(256 * max(nnz, 1), 1 << 22)
     byte_budget = 3 << 30
-    rows = np.repeat(np.arange(n_axis, dtype=np.int64), np.diff(offsets))
-
-    # per-tile full window widths
-    full_w = np.zeros(T, np.int64)
-    for t in range(T):
-        a = int(offsets[min(t * tile, n_axis)])
-        b = int(offsets[min((t + 1) * tile, n_axis)])
-        if b > a:
-            seg = indices[a:b]
-            # width needed from a 128-aligned start (see _tile_windows)
-            full_w[t] = int(seg.max()) - (int(seg.min()) // _ALIGN) * _ALIGN + 1
+    full_w, most = side.full_widths()
 
     def _round(w):
         return max(tile, ((int(w) + tile - 1) // tile) * tile)
@@ -981,10 +1037,10 @@ def _band_slabs(offsets, indices, values, n_axis, n_other, tile,
     for W in sorted(set(cands), reverse=True):
         slab_elems = T * tile * W
         if slab_elems > elem_budget or \
-                slab_elems * np.dtype(np_dtype).itemsize > byte_budget:
+                slab_elems * vals.dtype.itemsize > byte_budget:
             continue
-        starts, inside = _tile_windows(offsets, indices, n_axis, tile, W)
-        n_spill = int((~inside).sum())
+        starts, inside = side.windows(W)
+        n_spill = nnz - int(inside.sum())
         if n_spill > spill_frac * max(nnz, 1):
             continue
         rate = 1.0 if W <= 512 else WIDE_RATE_PENALTY
@@ -995,54 +1051,44 @@ def _band_slabs(offsets, indices, values, n_axis, n_other, tile,
     if chosen is None:
         return None
     W, starts, inside = chosen
-
-    slabs = np.zeros((T, tile, W), np_dtype)
-    if nnz:
-        t_of = rows // tile
-        r_in = rows % tile
-        local = indices - starts[t_of]
-        np.add.at(slabs, (t_of[inside], r_in[inside], local[inside]),
-                  values[inside])
     out = ~inside
-    spill = (
-        values[out].astype(np_dtype),
-        rows[out].astype(np.int64),
-        indices[out].astype(np.int64),
-    )
-    return slabs, tuple(int(s) for s in starts), W, spill
+    spill = (vals[out], rows[out], cols[out])
+    return (side.slabs(W, starts, inside, most),
+            tuple(starts.tolist()), W, spill)
 
 
 def build_block_band(offsets, indices, values, n_rows, n_cols, dtype,
                      tile=128, spill_frac=0.15, device="cuda"):
-    """Build a BlockBandOp, or None when the matrix has no usable band
-    structure (window blow-up guard in _band_slabs)."""
-    np_dtype = _np_dtype(dtype)
+    """Build a BlockBandOp on `device`, or None when the matrix has no
+    usable band structure (window blow-up guard in _band_slabs). The CSR
+    goes to `device` once; both slab sets are laid out there (the
+    transpose by a stable sort of the columns)."""
+    with trace_scope("device_upload"):
+        offsets, cols, vals = (
+            torch.as_tensor(a).to(device) for a in (
+                np.asarray(offsets, np.int64), np.asarray(indices, np.int64),
+                np.asarray(values, _np_dtype(dtype))))
     with trace_scope("sparse_band_layout"):
-        row = _band_slabs(offsets, indices, values, n_rows, n_cols, tile,
-                          np_dtype, spill_frac)
+        rows = torch.repeat_interleave(
+            torch.arange(n_rows, device=cols.device), offsets.diff(),
+            output_size=len(cols))
+        row = _band_slabs(rows, cols, vals, n_rows, n_cols, tile, spill_frac)
         if row is None:
             return None
-        t_offsets, t_indices, t_values, _ = _transpose_csr(
-            offsets, indices, values, n_rows, n_cols
-        )
-        col = _band_slabs(t_offsets, t_indices, t_values, n_cols, n_rows,
-                          tile, np_dtype, spill_frac)
+        t_rows, order = torch.sort(cols, stable=True)
+        col = _band_slabs(t_rows, rows[order], vals[order], n_cols, n_rows,
+                          tile, spill_frac)
         if col is None:
             return None
-    row_slabs, row_starts, w_row, (sv, sr, sc) = row
-    col_slabs, col_starts, w_col, (tv, tr, tc) = col
-
-    def t(a):
-        return torch.as_tensor(a, device=device)
-
-    with trace_scope("device_upload"):
+        row_slabs, row_starts, w_row, (sv, sr, sc) = row
+        col_slabs, col_starts, w_col, (tv, tr, tc) = col
         return BlockBandOp(
             n_rows=n_rows, n_cols=n_cols, tile=tile,
             w_row=w_row, w_col=w_col,
             row_starts=row_starts, col_starts=col_starts,
-            row_slabs=t(row_slabs), col_slabs=t(col_slabs),
-            spill_vals=t(sv), spill_rows=t(sr), spill_cols=t(sc),
-            t_spill_vals=t(tv), t_spill_rows=t(tr), t_spill_cols=t(tc),
+            row_slabs=row_slabs, col_slabs=col_slabs,
+            spill_vals=sv, spill_rows=sr, spill_cols=sc,
+            t_spill_vals=tv, t_spill_rows=tr, t_spill_cols=tc,
         )
 
 
@@ -1084,6 +1130,7 @@ def build_permuted_band(offsets, indices, values, n_rows, n_cols, dtype,
                           inv_col_perm=t(inv_cp))
 
 
+# ----------------------------------------------------------- host builders
 def _csr_to_ell(offsets, indices, values, n_rows, width, dtype):
     counts = np.diff(offsets)
     ell_vals = np.zeros((n_rows, width), dtype)

@@ -13,11 +13,17 @@ Here:
   - The LP path's spans, by layer (lp/pdlp.py, sparse/ops.py):
       pdlp_run               PdlpSolver.run after its early stop return
       pdlp_build             build_device_problem, inside pdlp_run
-      sparse_band_layout     build_block_band's slabs and transpose (one
-                             per band try)
+      sparse_band_layout     build_block_band's layout on the build's
+                             device: the window search, the transpose
+                             and both slab sets (one per band try)
+      sparse_layout_fold     inside sparse_band_layout, the adds of a
+                             repeated (row, column)'s later entries; only
+                             for a CSR that repeats one
       sparse_reorder         the bandwidth permutation and the permuted
                              CSR, when the unpermuted band fails
-      device_upload          the build's host-to-device copies
+      device_upload          the build's host-to-device copies: the
+                             vectors and offset, the CSR once per band
+                             try, the permutations
       pdlp_scaling           compute_scaling
       pdlp_pdhg_steps        a major's PDHG steps
       pdlp_step_sync         a host wait inside a major's steps: a

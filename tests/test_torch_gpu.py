@@ -29,7 +29,7 @@ from cuopt_torch.lp.solve import solve_lp
 from cuopt_torch.problem.mittelmann import GENERATORS
 from cuopt_torch.problem.synthetic import generate_lp
 from cuopt_torch.sparse import build_operator, reorder
-from cuopt_torch.sparse.ops import BlockBandOp, _tile_windows
+from cuopt_torch.sparse.ops import BlockBandOp, _BandSide
 from cuopt_torch.sparse.reorder import permute_csr
 
 torch.set_num_threads(1)
@@ -78,8 +78,9 @@ def _op_of_width(n, W, band, device):
     p = generate_lp(n, n, 6, seed=5, band=band)
     offsets, indices = np.asarray(p.offsets), np.asarray(p.indices)
     values = np.asarray(p.values, np.float32)
-    starts, inside = _tile_windows(offsets, indices, n, 128, W)
     rows = np.repeat(np.arange(n), np.diff(offsets))
+    starts, inside = (a.numpy() for a in _BandSide(
+        *map(torch.as_tensor, (rows, indices, values)), n, n, 128).windows(W))
     t_of = rows // 128
     slabs = np.zeros((-(-n // 128), 128, W), np.float32)
     np.add.at(slabs, (t_of[inside], rows[inside] % 128,
@@ -417,6 +418,69 @@ def test_band_recovery_on_the_card_equals_the_cpus(cuda, monkeypatch):
     monkeypatch.setattr(reorder, "bandwidth_permutation",
                         lambda *a, **k: real(*a, **{**k, "device": "cpu"}))
     assert steps(dataclasses.replace(prob)) == card_steps
+
+
+def _with_repeats(offsets, indices, values):
+    """The CSR with every 7th row's first entry repeated once, after its
+    third, and every 11th row's last entry twice more, after its first
+    and at its end: (row, column)s two and three deep, the copies among
+    the row's other entries, each copy with a value of its own."""
+    rng = np.random.default_rng(23)
+    rows = []
+    for i in range(len(offsets) - 1):
+        a, b = int(offsets[i]), int(offsets[i + 1])
+        r = list(zip(indices[a:b], values[a:b]))
+        if i % 7 == 0 and r:
+            r.insert(3, (r[0][0], rng.normal()))
+        if i % 11 == 0 and r:
+            r.insert(1, (r[-1][0], rng.normal()))
+            r.append((r[-1][0], rng.normal()))
+        rows.append(r)
+    out = [np.concatenate([[0], np.cumsum([len(r) for r in rows])])]
+    for k in (0, 1):
+        out.append(np.array([e[k] for r in rows for e in r]))
+    return out
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("staircase-20k", torch.float32), ("shuffled-20k", torch.float32),
+    ("repeats-20k", torch.float32), ("repeats-20k", torch.float64)])
+def test_band_layout_on_the_card_equals_the_cpus(cuda, case, dtype):
+    """The block band laid out on the card equals the one laid out on
+    the CPU bit for bit (the CPU's equals cuopt_tpu's NumPy layout,
+    tests/test_torch_problem_sparse.py): slabs, starts, widths and both
+    spills. The 20k staircase; the same LP under a random row and column
+    shuffle, whose band bandwidth_permutation recovers; and the staircase
+    with repeated (row, column)s, which the layout sums in CSR order."""
+    n = 20_000
+    p = generate_lp(n, n, 8, seed=29, band=256)
+    offsets, indices, values = p.offsets, p.indices, p.values
+    kind = "blockband"
+    if case == "shuffled-20k":
+        rng = np.random.default_rng(30)
+        offsets, indices, values = permute_csr(
+            offsets, indices, np.asarray(values, np.float64),
+            rng.permutation(n), rng.permutation(n), n, n)
+        kind = "bandperm"
+    if case == "repeats-20k":
+        offsets, indices, values = _with_repeats(offsets, indices, values)
+    card, cpu = (build_operator(offsets, indices, values, n, n, dtype=dtype,
+                                kind=kind, device=d) for d in (cuda, "cpu"))
+    if kind == "bandperm":
+        for f in ("row_perm", "col_perm"):
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+        card, cpu = card.inner, cpu.inner
+    assert card.row_slabs.device.type == "cuda"
+    for f in dataclasses.fields(BlockBandOp):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert np.array_equal(a.cpu().numpy().view(np.uint8),
+                                  b.numpy().view(np.uint8)), f.name
+        else:
+            assert a == b, f.name
+    if case == "repeats-20k":
+        assert card.spill_vals.numel() < len(values)
 
 
 def test_race_against_a_blocked_simplex_on_the_card(cuda, monkeypatch):

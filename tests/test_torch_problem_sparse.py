@@ -18,9 +18,11 @@ import jax.numpy as jnp  # noqa: E402
 from cuopt_torch.problem.data_model import OptimizationProblem  # noqa: E402
 from cuopt_torch.problem.mittelmann import GENERATORS as T_GENERATORS  # noqa: E402
 from cuopt_torch.problem.synthetic import generate_lp as t_generate_lp  # noqa: E402
+from cuopt_torch.sparse import build_block_band as t_build_band  # noqa: E402
 from cuopt_torch.sparse import build_operator as t_build  # noqa: E402
 from cuopt_tpu.problem.mittelmann import GENERATORS as J_GENERATORS  # noqa: E402
 from cuopt_tpu.problem.synthetic import generate_lp as j_generate_lp  # noqa: E402
+from cuopt_tpu.sparse import build_block_band as j_build_band  # noqa: E402
 from cuopt_tpu.sparse import build_operator as j_build  # noqa: E402
 from cuopt_tpu.sparse.reorder import permute_csr  # noqa: E402
 
@@ -59,8 +61,55 @@ def test_generators_identical(family, scale):
 
 
 # ------------------------------------------------------------- operators
+def _crafted(case):
+    """(offsets, indices, values, n_rows, n_cols) of a 1,024 x 1,000 band
+    (five distinct columns a row, within 40 of the diagonal) with one
+    feature that the slab layout must treat as cuopt_tpu's NumPy layout
+    does:
+      repeats  a (row, column) twice in every 7th row and three times in
+               every 11th, the copies among the row's other entries;
+      empty    every 13th row, the rows of tile 2 and the columns 512-639
+               (a column tile) hold nothing;
+      edge     tile 3's nonzeros lie in columns 850-999, so its window
+               runs past the last column, and tile 4's in columns 100-250;
+      tie      tile 5's nonzeros in two clusters of 320, at columns 0-39
+               and 900-939: two candidate windows cover equally many.
+    Values are seeded normals, one of them -0.0."""
+    n, m = 1024, 1000
+    rng = np.random.default_rng(31)
+    rows = []
+    for i in range(n):
+        c = i * m // n
+        cols = list(rng.choice(np.arange(max(0, c - 40), min(m, c + 41)), 5,
+                               replace=False))
+        if case == "edge" and 384 <= i < 640:
+            lo, hi = (850, 1000) if i < 512 else (100, 251)
+            cols = list(rng.choice(np.arange(lo, hi), 5, replace=False))
+        if case == "tie" and 640 <= i < 768:
+            base = 0 if i < 704 else 900
+            cols = list(base + rng.choice(40, 5, replace=False))
+        if case == "repeats":
+            if i % 7 == 0:
+                cols.insert(2, cols[0])
+            if i % 11 == 0:
+                cols.insert(1, cols[-1])
+                cols.append(cols[-1])
+        if case == "empty":
+            if i % 13 == 0 or 256 <= i < 384:
+                cols = []
+            cols = [j for j in cols if not 512 <= j < 640]
+        rows.append(cols)
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in rows])])
+    indices = np.concatenate(rows).astype(np.int64)
+    values = rng.normal(size=len(indices))
+    values[7] = -0.0
+    return offsets, indices, values, n, m
+
+
 def _csr(case):
     """(offsets, indices, values, n_rows, n_cols) of a small instance."""
+    if case in ("repeats", "empty", "edge", "tie"):
+        return _crafted(case)
     if case == "banded":
         p = j_generate_lp(1000, 900, 6, seed=5, band=64)
     elif case == "shuffled":
@@ -109,8 +158,11 @@ def _assert_same_fields(a, b, path="op"):
         elif isinstance(va, np.ndarray):
             if va.dtype.kind in "iu":  # int64 here, int32 in cuopt_tpu
                 va, vb = va.astype(np.int64), vb.astype(np.int64)
-            else:
+            else:  # bit for bit: -0.0 is not 0.0
                 assert va.dtype == vb.dtype, f"{path}.{k}"
+                assert va.shape == vb.shape, f"{path}.{k}"
+                va, vb = (np.ascontiguousarray(a).view(np.uint8)
+                          for a in (va, vb))
             np.testing.assert_array_equal(va, vb, err_msg=f"{path}.{k}")
         else:
             assert va == vb, f"{path}.{k}"
@@ -119,23 +171,43 @@ def _assert_same_fields(a, b, path="op"):
 _KIND_CASES = [("blockband", "banded"), ("blockband", "wide"),
                ("bandperm", "shuffled"), ("ell", "random"),
                ("csr", "random"), ("dense", "random")]
+# the slab layout's corners (_crafted), float64 unless the case says f32
+_LAYOUT_CASES = [("blockband", "repeats"), ("blockband", "repeats-f32"),
+                 ("blockband", "empty"), ("blockband", "edge"),
+                 ("blockband", "tie")]
 
 
 def _both(kind, case):
-    off, idx, val, n, m = _csr(case)
-    t_op = t_build(off, idx, val, n, m, dtype=torch.float64, kind=kind,
-                   device="cpu")
-    j_op = j_build(off, idx, val, n, m, dtype=jnp.float64, kind=kind)
+    f32 = case.endswith("-f32")
+    off, idx, val, n, m = _csr(case.removesuffix("-f32"))
+    t_op = t_build(off, idx, val, n, m, kind=kind, device="cpu",
+                   dtype=torch.float32 if f32 else torch.float64)
+    j_op = j_build(off, idx, val, n, m, kind=kind,
+                   dtype=jnp.float32 if f32 else jnp.float64)
     return t_op, j_op
 
 
-@pytest.mark.parametrize("kind,case", _KIND_CASES)
+@pytest.mark.parametrize("kind,case", _KIND_CASES + _LAYOUT_CASES)
 def test_build_operator_identical(kind, case):
     t_op, j_op = _both(kind, case)
     assert type(t_op).__name__ == type(j_op).__name__
     _assert_same_fields(_fields(t_op), _fields(j_op))
     if case == "wide":
         assert t_op.spill_vals.numel() > 0  # the spill path is covered
+    if case.startswith("repeats"):
+        # the CSR repeats (row, column)s: 5 + 1 + 2 entries in row 0
+        off = _csr("repeats")[0]
+        assert off[1] == 8 and t_op.spill_vals.numel() < off[-1]
+    if case == "empty":
+        assert t_op.row_slabs[2].eq(0).all() and t_op.col_slabs[4].eq(0).all()
+        assert t_op.row_starts[2] == t_op.col_starts[4] == 0
+    if case == "edge":
+        assert t_op.row_starts[3] + t_op.w_row > t_op.n_cols
+    if case == "tie":
+        # one cluster in the window, the other spilled: the lesser start
+        assert t_op.w_row < 900 and t_op.row_starts[5] == 0
+        assert t_op.spill_rows.ge(640).logical_and(
+            t_op.spill_rows.lt(768)).sum() == 320
 
 
 def _rel(a, b):
@@ -192,18 +264,20 @@ def _outlier_row(p, m):
 
 
 @pytest.mark.parametrize("case", ["banded-auto", "shuffled-auto",
-                                  "outlier-row"])
+                                  "outlier-row", "shuffled-unpermuted"])
 def test_operator_choice_matches(case):
     """tests/test_sparse_ops.py:62-190: "auto" takes the block band for a
     banded matrix and the permuted band for a shuffled one; a dense
     coupling row goes to the spill, not into the window. Both packages
-    build the same operator."""
-    n = 3000 if case == "shuffled-auto" else 4000
-    p = j_generate_lp(n, n, 6, seed=7 if case == "shuffled-auto" else 2,
-                      band=160 if case == "shuffled-auto" else 192)
+    build the same operator. On the shuffled matrix the unpermuted band
+    try fails in both ("shuffled-unpermuted")."""
+    shuffled = case.startswith("shuffled")
+    n = 3000 if shuffled else 4000
+    p = j_generate_lp(n, n, 6, seed=7 if shuffled else 2,
+                      band=160 if shuffled else 192)
     off, idx, val = p.offsets, p.indices, p.values
     kind, kw = "auto", dict(dense_size_limit=1 << 10)
-    if case == "shuffled-auto":
+    if shuffled:
         rng = np.random.default_rng(8)
         off, idx, val = permute_csr(np.asarray(off), np.asarray(idx),
                                     np.asarray(val, np.float64),
@@ -212,11 +286,14 @@ def test_operator_choice_matches(case):
     elif case == "outlier-row":
         off, idx, val = _outlier_row(p, n)
         kind, kw = "blockband", {}
+    if case == "shuffled-unpermuted":
+        assert t_build_band(off, idx, val, n, n, torch.float64,
+                            device="cpu") is None
+        assert j_build_band(off, idx, val, n, n, jnp.float64) is None
     t_op = t_build(off, idx, val, n, n, dtype=torch.float64, kind=kind,
                    device="cpu", **kw)
     j_op = j_build(off, idx, val, n, n, dtype=jnp.float64, kind=kind, **kw)
-    want = {"banded-auto": "BlockBandOp", "shuffled-auto": "PermutedOp",
-            "outlier-row": "BlockBandOp"}[case]
+    want = "PermutedOp" if shuffled else "BlockBandOp"
     assert type(t_op).__name__ == type(j_op).__name__ == want
     _assert_same_fields(_fields(t_op), _fields(j_op))
     if case == "outlier-row":

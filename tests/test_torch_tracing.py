@@ -14,6 +14,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +33,7 @@ PARENT = {
     "pdlp_run": None,
     "pdlp_build": "pdlp_run",
     "sparse_band_layout": "pdlp_build",
+    "sparse_layout_fold": "sparse_band_layout",
     "sparse_reorder": "pdlp_build",
     "device_upload": "pdlp_build",
     "pdlp_scaling": "pdlp_build",
@@ -51,7 +53,8 @@ MODULE_SPANS = {
         "pdlp_termination", "pdlp_restart", "pdlp_major_readback",
         "pdlp_answer"},
     "cuopt_torch/sparse/ops.py": {
-        "sparse_band_layout", "sparse_reorder", "device_upload"},
+        "sparse_band_layout", "sparse_layout_fold", "sparse_reorder",
+        "device_upload"},
 }
 
 torch.set_num_threads(1)
@@ -145,7 +148,9 @@ def test_band_path_spans_nest_by_layer(shuffled):
     count = {n: sum(e.name == n for e in spans) for n in PARENT}
     assert count["sparse_reorder"] == int(shuffled)
     assert count["sparse_band_layout"] == 1 + int(shuffled)
-    assert count["device_upload"] == 2 + int(shuffled)
+    # the vectors, the CSR for each band try, the permutations
+    assert count["device_upload"] == 2 + 2 * int(shuffled)
+    assert count["sparse_layout_fold"] == 0  # no (row, column) repeats
     for name in ("pdlp_run", "pdlp_build", "pdlp_scaling", "pdlp_answer"):
         assert count[name] == 1, name
     for e in spans:
@@ -161,6 +166,34 @@ def test_band_path_spans_nest_by_layer(shuffled):
     majors = info["iterations"] // per_major
     assert count["pdlp_major_readback"] == count["pdlp_termination"] == \
         majors == 3
+
+
+def test_layout_fold_span_only_for_repeats():
+    """The layout opens its fold span once a side for a CSR that repeats
+    a (row, column), inside that side's layout span, and never for one
+    that repeats none."""
+    from cuopt_torch.sparse import build_operator
+
+    p = generate_lp(512, 512, 8, seed=2, band=64)
+    # row 5's first entry once more, at the row's end
+    end = int(p.offsets[6])
+    repeated = (p.offsets + (np.arange(513) > 5),
+                np.insert(p.indices, end, p.indices[p.offsets[5]]),
+                np.insert(p.values, end, 1.0))
+
+    def build(off, idx, vals):
+        return build_operator(off, idx, vals, 512, 512, kind="blockband",
+                              device="cpu")
+
+    for (off, idx, vals), folds in (((p.offsets, p.indices, p.values), 0),
+                                    (repeated, 2)):
+        _, spans = _profiled(lambda: build(off, idx, vals))
+        names = [e.name for e in spans]
+        assert names.count("sparse_layout_fold") == folds
+        assert names.count("sparse_band_layout") == 1
+        for e in spans:
+            if e.name == "sparse_layout_fold":
+                assert _enclosing(e, spans).name == "sparse_band_layout"
 
 
 def test_attempt_cap_reads_no_flag():
