@@ -22,8 +22,8 @@ from cuopt_torch.utils.logger import get_logger
 # what the vertex result keeps of the PDLP run: its steps and attempts
 # (cuopt_tpu keeps the steps only), its timing split and its warm-start
 # state
-_PDLP_KEYS = ("iterations", "attempts", "compile_s", "build_s",
-              "solve_loop_s", "loop_steps", "loop_attempts",
+_PDLP_KEYS = ("iterations", "attempts", "restarts", "compile_s",
+              "build_s", "solve_loop_s", "loop_steps", "loop_attempts",
               "graph_slots", "graph_count_reads", "warm_start_data", "warm_start_data_fn")
 
 

@@ -1207,7 +1207,8 @@ def _stopped() -> dict:
 
 # per-major scalars read back in ONE transfer (see PdlpSolver.run)
 _SCALAR_KEYS = ("opt_cur", "opt_avg", "numerical_error", "total_steps",
-                "total_attempts", "primal_infeasible", "dual_infeasible")
+                "total_attempts", "primal_infeasible", "dual_infeasible",
+                "did_restart")
 _INFO_KEYS = ("primal_obj", "dual_obj", "gap", "l2_primal_res",
               "l2_dual_res")
 
@@ -1293,7 +1294,7 @@ class PdlpSolver:
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
         use_avg = False
-        it = attempts = 0
+        it = attempts = restarts = 0
         inf_streak = unb_streak = 0
         best_primal = None  # (obj, x) under save_best_primal_so_far
         # strict: first detection terminates; non-strict: require two
@@ -1321,10 +1322,11 @@ class PdlpSolver:
                     + [report["info_cur"][k].to(torch.float64)
                        for k in _INFO_KEYS]))
             (f_opt_cur, f_opt_avg, f_num, f_steps, f_attempts, f_pinf,
-             f_dinf, v_pobj, v_dobj, v_gap, v_rp, v_rd) = packed
+             f_dinf, f_restart, v_pobj, v_dobj, v_gap, v_rp, v_rd) = packed
             opt_cur, opt_avg = bool(f_opt_cur), bool(f_opt_avg)
             numerical = bool(f_num)
             it, attempts = int(f_steps), int(f_attempts)
+            restarts += bool(f_restart)
             if t_first_major is None:
                 t_first_major = time.perf_counter() - t_run0
                 it0, attempts0 = it, attempts
@@ -1395,6 +1397,8 @@ class PdlpSolver:
                 "status": status,
                 "iterations": it,
                 "attempts": attempts,
+                # majors whose tail restarted the iterates
+                "restarts": restarts,
                 "solve_time": timer.elapsed(),
                 "primal_solution": _np(report[f"x_{which}"]),
                 "dual_solution": _np(report[f"y_{which}"]),

@@ -9,7 +9,8 @@ split (compile_s: the device problem's build plus the first major;
 build_s: the build alone, inside compile_s; solve_loop_s, loop_steps,
 loop_attempts: the majors after the first; graph_slots,
 graph_count_reads: the PDHG step driver's slots, one an attempt, and
-its step-count reads), a crossover's
+its step-count reads; restarts: the majors whose tail restarted the
+iterates), a crossover's
 pivots, the concurrent race's record ("race") and, when the PDLP leg of a
 race failed, its error ("pdlp_error"). A MIP solve adds its node count,
 gap and bound, the errors its heuristics caught ("heuristic_errors"), the
@@ -83,7 +84,7 @@ class Solution:
             "primal_objective", "dual_objective", "gap",
             "l2_primal_residual", "l2_dual_residual",
             "linf_primal_residual", "linf_dual_residual",
-            "iterations", "attempts", "solve_time", "solved_by",
+            "iterations", "attempts", "restarts", "solve_time", "solved_by",
             "compile_s", "build_s", "solve_loop_s", "loop_steps",
             "loop_attempts", "graph_slots", "graph_count_reads",
             "crossover_iterations", "crossover_status", "race",

@@ -36,6 +36,17 @@ Here:
       pdlp_major_readback    a major's one packed read of its scalars
       pdlp_answer            the solution vectors to the host, the
                              inverse permutation and the sign flip
+  - The float64 LP path runs no fused row pass: each attempt's
+    BlockBandOp.matvec and rmatvec (sparse/ops.py) are a window gather,
+    a torch.bmm over the slabs and, where entries spill, a segment sum.
+    On a card the attempts are CUDA-graph replays with no host code, so
+    no span times the pair: the device trace does, by kernel name
+    (cuBLAS's batched double gemv, `gemv2T_kernel_val<int, int,
+    double, ...>`, carries the two products). The host's part of a
+    float64 solve is its spans above: pdlp_pdhg_steps and
+    pdlp_step_sync for the replays, pdlp_termination and pdlp_restart
+    for each major's eager tail. The raw result counts the majors that
+    restarted (`restarts`, read in pdlp_major_readback).
   - CUOPT_PROFILE_DIR=<dir>: when set, the first solve starts a
     torch.profiler trace and atexit writes it as a Chrome trace into
     <dir>.

@@ -807,3 +807,47 @@ def test_driver_follows_a_second_problem():
                 for f in dataclasses.fields(T.SolverState)}
     for name, v in kept_copy.items():
         assert torch.equal(getattr(kept, name), v), name
+
+
+def _oracle_solve(prob, solver):
+    """The solve as a host loop of `_oracle_major`s: (restarts counted
+    from each major's `did_restart`, steps, the answer's x and y)."""
+    dev = T.build_device_problem(prob, solver.hp, solver.dtype,
+                                 solver.settings.operator_kind, "cpu")
+    s = T.initial_state(dev, solver.hp, solver.dtype)
+    restarts = 0
+    while True:
+        s, r = _oracle_major(dev, s, solver.cfg)
+        restarts += bool(r["did_restart"])
+        if bool(r["opt_cur"]) or bool(r["opt_avg"]):
+            which = "cur" if bool(r["opt_cur"]) else "avg"
+            return (restarts, int(r["total_steps"]),
+                    r[f"x_{which}"].numpy(), r[f"y_{which}"].numpy())
+        assert int(r["total_steps"]) < solver.settings.iteration_limit
+
+
+@pytest.mark.parametrize("strategy", ["none", "default"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_restart_count_equals_the_oracles(dtype, strategy):
+    """The raw result's `restarts` is the count of majors whose tail set
+    `did_restart`, read in the major's one packed readback: 0 with
+    restarts off, and with the default strategy the count the host loop
+    of eager majors reads; the steps and the answer equal the loop's bit
+    for bit."""
+    prob = t_generate(384, 384, 5, seed=11, band=64)
+    settings = TSettings()
+    settings.dtype = dtype
+    settings.iteration_limit = 20_000
+    solver = T.PdlpSolver(prob, settings, device="cpu")
+    if strategy == "none":
+        solver.hp = dataclasses.replace(
+            solver.hp, restart_strategy=T.RESTART_NONE)
+        solver.cfg = dataclasses.replace(solver.cfg, hp=solver.hp)
+    sol = solver.run()
+    assert sol["status"] == C.CUOPT_TERIMINATION_STATUS_OPTIMAL
+    restarts, steps, x, y = _oracle_solve(prob, solver)
+    assert sol["restarts"] == restarts
+    assert (restarts == 0) == (strategy == "none")
+    assert sol["iterations"] == steps
+    np.testing.assert_array_equal(sol["primal_solution"], x)
+    np.testing.assert_array_equal(sol["dual_solution"], y)
