@@ -18,12 +18,20 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      it ran (one-pass up to W_ONE_PASS, column-split up to
      W_COLUMN_SPLIT), its resident blocks per SM and its time as a share
      of the one-read bound. Times are device times: CUDA-event means over
-     50 calls captured in a CUDA graph (no host launch cost);
+     50 calls captured in a CUDA graph (no host launch cost). Then the
+     slot's step kernels (lp/pdhg_step.py) against their plain versions
+     from the state after one major of the 50k and 300k staircases in
+     float32 (the fused row pass) and the 50k staircase in float64 (the
+     unfused band products), each timed alone beside the time of the
+     bytes it moves, and a whole slot timed and its device ops counted
+     both ways (the torch `_slot`, `kernel_slot`);
   3-5. solve_lp by PDLP alone in float32 on the 50k staircase, its
      shuffled copy and the 300k staircase: OPTIMAL, objective within 1e-3
      relative of scipy's HiGHS, the primal residual rechecked on the host
      in float64, and every step attempt launched through the row-pass
-     kernels;
+     kernels and the step kernels; then the 50k staircase under the
+     float64 defaults, OPTIMAL, every attempt through the unfused path's
+     step kernels;
   6. solve_lp in float32 on degen-transport at scale 100,000, which PDLP
      does not solve in reasonable time, to a fixed 400 steps:
      ITERATION_LIMIT, finite iterates, every attempt through the
@@ -158,7 +166,8 @@ Phases (any failure exits non-zero; without a CUDA card nothing runs):
      kept on the host.
 
 The last two lines are one JSON object with every kernel's launches (as
-the kernel counted them on the card), error and times, and the contract line
+the kernel counted them on the card), error and times (the row pass's
+and the step kernels'), and the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -331,6 +340,7 @@ def phase_device():
     with ThreadPoolExecutor(4) as pool:
         builds = {
             "row_pass (nvcc)": pool.submit(BUILDER.build, "row_pass"),
+            "pdhg_step (nvcc)": pool.submit(BUILDER.build, "pdhg_step"),
             "simplex (g++)": pool.submit(BUILDER.build_simplex),
             "MPS parser (g++)": pool.submit(BUILDER.build_mps),
             ("C ABI and its C caller (gcc)" if shared else "C ABI (gcc)"):
@@ -343,7 +353,7 @@ def phase_device():
         f"{name} {'cached' if s is None else f'{s:.2f} s'}"
         for name, s in took.items()))
     for name, out in BUILDER.log.items():
-        if name != "row_pass":
+        if name not in ("row_pass", "pdhg_step"):
             continue
         for fn, r in ptxas_report(out).items():
             log(f"  ptxas {name}: {fn}: {r['registers']} registers, "
@@ -473,6 +483,138 @@ def phase_kernels(ops):
     return records
 
 
+# the step kernels' cases: the staircases in the dtype the benchmark
+# solves them in, float32 on the fused row pass, float64 on the unfused
+# band products
+STEP_CASES = (("staircase-50k", 50_000, "float32"),
+              ("staircase-300k", 300_000, "float32"),
+              ("staircase-50k-f64", 50_000, "float64"))
+
+
+def _step_bytes(kernel, n, m, es, fused):
+    """Bytes a step kernel reads and writes, each vector once: es a
+    float, one a mask entry."""
+    if kernel == "pdhg_primal":  # x, aty, c, lv, uv -> x_new; masks
+        return 6 * m * es + ((4 * es + 2) * n if fused else 0)
+    if kernel == "pdhg_dual":  # ax_new, ax, y, lc0, uc0, masks -> y_new
+        return (6 * es + 2) * n
+    if kernel == "pdhg_row_sums":  # ax_new, ax, y, y_new
+        return 4 * n * es
+    # pdhg_commit: 6 vectors read and 4 written a side
+    return 10 * (n + m) * es
+
+
+def _device_ops(fn) -> int:
+    """Device ops (kernels, copies and fills) of one eager fn() call."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def phase_step_kernels(probs):
+    """Each case of STEP_CASES from the state after one major: every step
+    kernel against its plain version (kernels/checks.py
+    check_step_kernels, which must pass), then each kernel of its path
+    timed alone (cuda_ms) beside the time of its bytes at the HBM rate,
+    and a whole slot both ways. The vectors stay in the 50 MB L2 from one
+    timed launch to the next, where in a solve the row pass's slabs go
+    through it in between, so a share may pass 100%. Returns {(case,
+    kernel name): record}."""
+    import torch
+
+    from cuopt_torch.kernels.checks import check_step_kernels
+    from cuopt_torch.lp import pdhg_step as ps
+    from cuopt_torch.lp import pdlp
+    from cuopt_torch.lp.pdhg_fused import spilled_row_pass
+    from cuopt_torch.lp.settings import PDLPSolverSettings
+
+    records = {}
+    for case, n, dtype in STEP_CASES:
+        settings = PDLPSolverSettings()
+        settings.dtype = dtype
+        solver = pdlp.PdlpSolver(probs[n], settings, "cuda")
+        cfg = solver.cfg
+        dev = pdlp.build_device_problem(probs[n], solver.hp, solver.dtype,
+                                        "auto", "cuda")
+        s, _ = pdlp.make_major_fn(cfg)(
+            dev, pdlp.initial_state(dev, solver.hp, solver.dtype))
+        s = s.replace(**{f.name: getattr(s, f.name).clone()
+                         for f in dataclasses.fields(s)})
+        fused = pdlp._use_fused(dev, solver.dtype, cfg)
+        res = check_step_kernels(dev, s, cfg, fused)
+        errs = ", ".join(f"{k[:-4]} {v:.3g}" for k, v in res.items()
+                         if k.endswith("_err"))
+        log(f"[step] {case}: {type(dev.op).__name__}, "
+            f"{'fused row pass' if fused else 'unfused products'}; "
+            f"against the plain versions: {errs}; deterministic "
+            f"{res['deterministic']}, commit the same {res['commit_same']}")
+        require(res["ok"], f"{case}: a step kernel disagrees with its "
+                           f"plain version: {res}")
+
+        work = ps.step_work(dev, s, fused)
+        dst = s.replace(**{f: torch.empty_like(getattr(s, f))
+                           for f in ps.COMMIT_FIELDS})
+        pending = torch.zeros_like(s.total_steps)
+        dst_pending = torch.empty_like(pending)
+        ps.primal(dev, s, work)
+        if fused:
+            ax_new, y_new, aty_new = spilled_row_pass(
+                dev.op, work.x_new, s.ax, s.y, work.lc0m, work.uc0m,
+                work.sigma)
+        else:
+            ax_new = dev.op.matvec(work.x_new)
+            y_new = ps.dual(dev, s, ax_new, work)
+            aty_new = dev.op.rmatvec(y_new)
+        calls = {"pdhg_primal": (ps.primal, ps.primal_reference,
+                                 (dev, s, work))}
+        if fused:
+            calls["pdhg_row_sums"] = (ps.row_sums, ps.row_sums_reference,
+                                      (s, ax_new, y_new, work))
+        else:
+            calls["pdhg_dual"] = (ps.dual, ps.dual_reference,
+                                  (dev, s, ax_new, work))
+        calls["pdhg_commit"] = (ps.commit, ps.commit_reference, (
+            s, pending, cfg, dst, dst_pending, work, ax_new, y_new,
+            aty_new))
+        rows, cols = dev.op.shape
+        es = s.x.element_size()
+        for name, (kern, plain, args) in calls.items():
+            ms = cuda_ms(lambda: kern(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            b_ms, b_by = bound_ms(_step_bytes(name, rows, cols, es, fused),
+                                  0.0)
+            records[(case, name)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, share_of_bound=b_ms / ms,
+                dtype=dtype, fused=fused)
+            log(f"[step] {case} {name}: {ms:.5f} ms, bound {b_ms:.5f} ms "
+                f"({b_by}), share of bound {100 * b_ms / ms:.1f}%, plain "
+                f"{plain_ms:.5f} ms")
+        slots = {
+            "torch _slot": lambda: pdlp._slot(dev, s, pending, cfg, dst,
+                                              dst_pending),
+            "kernel_slot": lambda: ps.kernel_slot(dev, s, pending, cfg, dst,
+                                                  dst_pending, work),
+        }
+        slot_ms = {k: cuda_ms(fn, 20) for k, fn in slots.items()}
+        slot_ops = {k: _device_ops(fn) for k, fn in slots.items()}
+        log(f"[step] {case}: a slot {slot_ms['torch _slot']:.4f} ms in "
+            f"{slot_ops['torch _slot']} device ops as the torch _slot, "
+            f"{slot_ms['kernel_slot']:.4f} ms in {slot_ops['kernel_slot']} "
+            f"through the step kernels")
+        del dev, s, dst, work, ax_new, y_new, aty_new, calls, slots
+        torch.cuda.empty_cache()
+    return records
+
+
 # -------------------------------------------------------- phases 3-5
 def host_primal_residual(prob, x):
     """(||violation of l_c <= A x <= u_c||_2, ||b||_2), in float64 on the
@@ -505,13 +647,35 @@ def _settings(iteration_limit, **kw):
     return s
 
 
+def reset_counts():
+    """Zero the launch counts of the row pass and of the step kernels."""
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp import pdhg_step as ps
+
+    pf.reset_counts()
+    ps.reset_counts()
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset_counts} of the row
+    pass and of the step kernels."""
+    from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp import pdhg_step as ps
+
+    return {k.name: k.launches for k in (*pf.KERNELS, *ps.KERNELS)}
+
+
 def _solve(name, prob, s, kernels):
-    """solve_lp in float32 on the card with the launch counts reset just
-    before it; prints its status, steps, loop rate and launches and checks
-    that each attempt went through `kernels` and never through the plain
-    version. The launches are the kernels' own count on the card, so a
-    launch that the solve's CUDA graphs replay counts each time it runs.
-    Returns (solution, info, launch counts)."""
+    """solve_lp on the card with the launch counts reset just before it;
+    prints its status, steps, loop rate and launches and checks that each
+    attempt went through `kernels` (the row-pass kernel the fused step
+    takes; none for the unfused step) and never through the plain
+    version, and through the step kernels of its path: pdhg_primal,
+    pdhg_row_sums (fused) or pdhg_dual (unfused), pdhg_commit, with
+    every slot counted in step_kernel_slots. The launches are the
+    kernels' own count on the card, so a launch that the solve's CUDA
+    graphs replay counts each time it runs. Returns (solution, info,
+    launch counts)."""
     import torch
 
     from cuopt_torch.lp import pdhg_fused as pf
@@ -519,12 +683,12 @@ def _solve(name, prob, s, kernels):
     from cuopt_torch.lp.solve import solve_lp
 
     torch.cuda.reset_peak_memory_stats()
-    pf.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     sol = solve_lp(prob, s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in pf.KERNELS}
+    launches = launch_counts()
     plain = pf.PlainCount.calls
     info = sol.get_additional_termination_information()
     info["wall_s"] = wall
@@ -532,8 +696,8 @@ def _solve(name, prob, s, kernels):
     loop_s = info["solve_loop_s"]
     dev = pdlp.cached_device_problem(prob)
     op = dev.op if dev is not None else None
-    slab_bytes = op.row_slabs.numel() * 4 if hasattr(op, "row_slabs") \
-        else None
+    slab_bytes = op.row_slabs.numel() * op.row_slabs.element_size() \
+        if hasattr(op, "row_slabs") else None
     shape = tuple(op.row_slabs.shape) if slab_bytes else None
     log(f"[solve] {name}: {sol.get_termination_reason()}, {steps} steps, "
         f"{attempts} attempts, operator {type(op).__name__} slabs {shape}")
@@ -548,10 +712,19 @@ def _solve(name, prob, s, kernels):
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     log(f"[solve] {name}: launches {launches}, plain-version calls {plain}")
     require(plain == 0, f"{name}: the plain row pass ran {plain} times")
-    for k in kernels:
+    fused = bool(kernels)
+    step = ("pdhg_primal", "pdhg_row_sums" if fused else "pdhg_dual",
+            "pdhg_commit")
+    for k in (*kernels, *step):
         require(launches[k] == attempts,
                 f"{name}: {k} launched {launches[k]} times for {attempts} "
                 f"step attempts")
+    off = "pdhg_dual" if fused else "pdhg_row_sums"
+    require(launches[off] == 0, f"{name}: {off} launched {launches[off]} "
+                                f"times on the {'un' * (not fused)}fused step")
+    require(info["step_kernel_slots"] == info["graph_slots"] == attempts,
+            f"{name}: {info['step_kernel_slots']} step-kernel slots of "
+            f"{info['graph_slots']} for {attempts} attempts")
     return sol, info, launches
 
 
@@ -582,6 +755,24 @@ def phase_solve(name, prob, n, kernels):
         f"(limit {limit:.4e})")
     require(res <= limit, f"{name}: primal residual {res} > {limit}")
     return launches, info
+
+
+def phase_f64_solve(p50):
+    """The 50k staircase under the float64 defaults, PDLP alone: the
+    unfused band products and the unfused path's step kernels for every
+    attempt (`_solve`), OPTIMAL within OBJ_RTOL of HiGHS. Returns the
+    kernels' launch counts."""
+    name = "staircase-50k float64"
+    # a copy: a device problem cached apart from the float32 one
+    sol, info, launches = _solve(name, dataclasses.replace(p50),
+                                 _f64_settings(), ())
+    obj = sol.get_primal_objective()
+    rel = abs(obj - HIGHS_OBJ[50_000]) / abs(HIGHS_OBJ[50_000])
+    log(f"[solve] {name}: objective {obj:.6f} (rel err {rel:.2e})")
+    require(sol.get_termination_reason() == "Optimal", f"{name}: status "
+            f"{sol.get_termination_reason()}")
+    require(rel <= OBJ_RTOL, f"{name}: objective {obj}")
+    return launches
 
 
 # ------------------------------------------------------------ phase 6
@@ -705,7 +896,7 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     _no_simplex_thread_left(name)
 
     name = "concurrent staircase-2k"
-    pf.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     sol = solve_lp(p2k, _settings(20000, method=C.CUOPT_METHOD_CONCURRENT))
     torch.cuda.synchronize()
@@ -714,7 +905,7 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     _race_line(name, info, wall)
     obj = sol.get_primal_objective()
     rel = abs(obj - highs_2k) / abs(highs_2k)
-    launches = {k.name: k.launches for k in pf.KERNELS}
+    launches = launch_counts()
     total.update(launches)
     log(f"[concurrent] {name}: objective {obj:.12f} (HiGHS {highs_2k:.12f}, "
         f"rel err {rel:.2e}), launches {launches}")
@@ -753,7 +944,7 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     name = "concurrent staircase-50k float64 defaults"
     s = PDLPSolverSettings()
     s.log_to_console = False
-    pf.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     sol = solve_lp(dataclasses.replace(p50), s)  # a copy: its own cache
     torch.cuda.synchronize()
@@ -762,7 +953,7 @@ def phase_concurrent(p50, p2k, highs_2k, alone_rate):
     _race_line(name, info, wall)
     obj = sol.get_primal_objective()
     rel = abs(obj - HIGHS_OBJ[50_000]) / abs(HIGHS_OBJ[50_000])
-    launches = {k.name: k.launches for k in pf.KERNELS}
+    launches = launch_counts()
     total.update(launches)
     log(f"[concurrent] {name}: {sol.get_termination_reason()}, "
         f"{info['iterations']} steps, objective {obj:.6f} (rel err "
@@ -880,9 +1071,9 @@ def phase_crossover(p2k, highs_2k):
             s = PDLPSolverSettings()
             s.log_to_console = False
             s.method = method
-            pf.reset_counts()
+            reset_counts()
             sol = solve_lp(prob, s)
-            launches.update({k.name: k.launches for k in pf.KERNELS})
+            launches.update(launch_counts())
             info = sol.get_additional_termination_information()
             obj = sol.get_primal_objective()
             label = f"exit seed {seed}, method {method}"
@@ -916,12 +1107,12 @@ def phase_warm_start(p50):
     ws = first.get_pdlp_warm_start_data()
     moved = dataclasses.replace(
         p50, objective_coefficients=p50.objective_coefficients * (1 + 1e-3))
-    pf.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     warm = solve_lp(moved, _settings(20000, warm_start_data=ws))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in pf.KERNELS}
+    launches = launch_counts()
     total.update(launches)
     info = warm.get_additional_termination_information()
     steps = info["iterations"] - ws.total_pdlp_iterations
@@ -932,9 +1123,11 @@ def phase_warm_start(p50):
         f"{wall:.3f} s, launches {launches}, plain-version calls "
         f"{pf.PlainCount.calls}")
     require(pf.PlainCount.calls == 0, "warm re-solve: plain row pass ran")
-    require(launches["row_pass_atomic"] == attempts,
-            f"warm re-solve: {launches['row_pass_atomic']} launches for "
-            f"{attempts} attempts")
+    for k in ("row_pass_atomic", "pdhg_primal", "pdhg_row_sums",
+              "pdhg_commit"):
+        require(launches[k] == attempts,
+                f"warm re-solve: {launches[k]} launches of {k} for "
+                f"{attempts} attempts")
     cold, cold_info, launches = _solve("warm start: cold re-solve", moved,
                                        _settings(20000), kernels)
     total.update(launches)
@@ -1906,12 +2099,12 @@ def phase_surface(p50, p2k, highs_2k, workdir):
                 C.CUOPT_RELATIVE_GAP_TOLERANCE))):
         s.set_parameter(name, value)
     s.pdlp.dtype = "float32"
-    pf.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     sol = Solve(p50, s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in pf.KERNELS}
+    launches = launch_counts()
     obj = sol.get_primal_objective()
     info = sol.get_additional_termination_information()
     log(f"[surface] facade staircase-50k (float32 PDLP): "
@@ -1921,8 +2114,10 @@ def phase_surface(p50, p2k, highs_2k, workdir):
         f"{launches}")
     require(sol.get_termination_reason() == "Optimal", "facade: status")
     require(rel(obj, highs) <= SURFACE_RTOL, "facade: objective")
-    require(launches["row_pass_atomic"] == info["attempts"] > 0,
-            "facade: not every attempt through row_pass_atomic")
+    for k in ("row_pass_atomic", "pdhg_primal", "pdhg_row_sums",
+              "pdhg_commit"):
+        require(launches[k] == info["attempts"] > 0,
+                f"facade: not every attempt through {k}")
 
     # the CLI on staircase-50k, at its defaults
     mps50 = os.path.join(workdir, "staircase-50k.mps")
@@ -3174,6 +3369,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import cuopt_torch  # noqa: F401  (fails outside a checkout)
     from cuopt_torch.lp import pdhg_fused as pf
+    from cuopt_torch.lp import pdhg_step as ps
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3192,6 +3388,7 @@ def main() -> int:
     records = phase_kernels(ops)
     del ops
     torch.cuda.empty_cache()
+    records.update(phase_step_kernels({50_000: p50, 300_000: p300}))
     log(f"[kernels] done at {time.perf_counter() - t_start:.1f} s")
 
     total = Counter()  # launches over every solve of the main path
@@ -3204,6 +3401,9 @@ def main() -> int:
         total.update(launches)
         rates[name] = info["loop_steps"] / info["solve_loop_s"]
         log(f"[solve] {name} done at {time.perf_counter() - t_start:.1f} s")
+    total.update(phase_f64_solve(p50))
+    log(f"[solve] staircase-50k float64 done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     total.update(phase_degen_solve(pd))
     log(f"[solve] degen-transport-100k done at "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -3216,7 +3416,7 @@ def main() -> int:
     log(f"[crossover] done at {time.perf_counter() - t_start:.1f} s")
     total.update(phase_warm_start(p50))
     log(f"[warm start] done at {time.perf_counter() - t_start:.1f} s")
-    for k in pf.KERNELS:
+    for k in (*pf.KERNELS, *ps.KERNELS):
         require(total[k.name] > 0,
                 f"{k.name} was never launched on the main path")
 
@@ -3231,8 +3431,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phases 11-14 run in float64: the row-pass kernels (float32) see no
-    # launch there, and their counts go on adding up
-    pf.reset_counts()
+    # launch there, the step kernels one an attempt of each solo PDLP
+    # solve of the MIPs, and the counts go on adding up
+    reset_counts()
     batch_sols = phase_batch("staircase-50k x8", p50, "blockband")
     # Batched and alone, a dense-1k member's iterates part in their last
     # bits (other kernels sum in other orders) and drift apart over its
@@ -3263,7 +3464,7 @@ def main() -> int:
     phase_fj_chunk("staircase-mip-50k", p14)
     log(f"[mip] staircase-mip-50k done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    total.update({k.name: k.launches for k in pf.KERNELS})
+    total.update(launch_counts())
     del p14, x14, p13, x13
     torch.cuda.empty_cache()
 
@@ -3310,7 +3511,11 @@ def main() -> int:
 
     # each kernel at the shapes the main path gives it
     shape_of = {"row_pass_atomic": "staircase-50k",
-                "row_pass_partials": "staircase-300k"}
+                "row_pass_partials": "staircase-300k",
+                "pdhg_primal": "staircase-50k",
+                "pdhg_dual": "staircase-50k-f64",
+                "pdhg_row_sums": "staircase-50k",
+                "pdhg_commit": "staircase-50k"}
     kernels = []
     for k in pf.KERNELS:
         rec = records[(shape_of[k.name], k.name)]
@@ -3324,6 +3529,21 @@ def main() -> int:
             # the same kernel at the main path's widest window
             "degen_transport_100k": records[("degen-transport-100k",
                                              k.name)],
+        })
+    for k in ps.KERNELS:
+        kernels.append({
+            "name": k.name, "route": "cuda",
+            "source": f"cuopt_torch/csrc/{k.source}.cu",
+            "replaces": k.replaces, "launches": total[k.name],
+            # bench_torch.py counts the row pass's launches only
+            "bench_launches": None,
+            "shape": shape_of[k.name],
+            **records[(shape_of[k.name], k.name)],
+            # the same kernel in the other cases that run it
+            "cases": {case: records[(case, k.name)]
+                      for case, _, _ in STEP_CASES
+                      if case != shape_of[k.name]
+                      and (case, k.name) in records},
         })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ from cuopt_torch.utils.logger import get_logger
 # state
 _PDLP_KEYS = ("iterations", "attempts", "restarts", "compile_s",
               "build_s", "solve_loop_s", "loop_steps", "loop_attempts",
-              "graph_slots", "graph_count_reads", "warm_start_data", "warm_start_data_fn")
+              "graph_slots", "graph_count_reads", "step_kernel_slots",
+              "warm_start_data", "warm_start_data_fn")
 
 
 def crossover(prob, pdlp_raw, settings, timer):

@@ -1,4 +1,5 @@
-"""Kernel-against-plain checks of the fused row pass, on any CUDA card.
+"""Kernel-against-plain checks of the fused row pass and of the slot's
+step kernels (`check_step_kernels`), on any CUDA card.
 
 Used by chip_smoke.py at the main path's shapes and by
 tests/test_torch_gpu.py at small ones. Inputs come from a numpy seed;
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from cuopt_torch.lp import pdhg_fused as pf
+from cuopt_torch.lp import pdhg_step as ps
 
 VEC_TOL = 1e-5
 DOT_TOL = 1e-3
@@ -100,4 +102,101 @@ def check_row_pass(op, mode: str, inputs) -> dict:
     out["ok"] = all(v for k, v in out.items()
                     if k.endswith("_ok")
                     or k in ("deterministic", "folded_exact"))
+    return out
+
+
+# ------------------------------------------------------ the step kernels
+# float32 and float64: the tolerances of the slot's plain version against
+# the torch slot (tests/test_torch_pdhg_step.py)
+STEP_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over 1 + max |want| (NaN where either is)."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max().item() / (1 + want.abs().max().item())
+            if want.numel() else 0.0)
+
+
+def _slot_outputs(s):
+    """A state to write a slot into, and its next attempt index."""
+    out = s.replace(**{f: torch.empty_like(getattr(s, f))
+                       for f in ps.COMMIT_FIELDS})
+    return out, torch.empty_like(s.total_steps)
+
+
+def check_step_kernels(dev, s, cfg, fused: bool) -> dict:
+    """Each step kernel of lp/pdhg_step.py against its plain version on
+    the same CUDA inputs (problem `dev`, state `s`, the fused row pass
+    or not), then `kernel_slot` against `slot_reference` from `s`.
+
+    The elementwise results must have the same bits (x_new, sigma, the
+    sentinel bounds, y_new; the commit's vectors given the same partial
+    sums); the partial sums and the slot's fields must agree within
+    STEP_TOL x (1 + max|plain|); the commit, the next attempt index and
+    the counters must be equal; the kernels run again on the same inputs
+    must give the same bits."""
+    tol = STEP_TOL[s.x.dtype]
+    wk, wp = ps.step_work(dev, s, fused), ps.step_work(dev, s, fused)
+    out = {}
+    ps.primal(dev, s, wk)
+    ps.primal_reference(dev, s, wp)
+    out["x_new_same"] = torch.equal(wk.x_new, wp.x_new)
+    out["sigma_same"] = torch.equal(wk.sigma, wp.sigma)
+    if fused:
+        out["sentinels_same"] = torch.equal(wk.lc0m, wp.lc0m) and \
+            torch.equal(wk.uc0m, wp.uc0m)
+        ax_new, y_new, aty_new = pf.spilled_row_pass(
+            dev.op, wk.x_new, s.ax, s.y, wk.lc0m, wk.uc0m, wk.sigma)
+        ps.row_sums(s, ax_new, y_new, wk)
+        ps.row_sums_reference(s, ax_new, y_new, wp)
+    else:
+        ax_new = dev.op.matvec(wk.x_new)
+        y_new = ps.dual(dev, s, ax_new, wk)
+        ps.dual_reference(dev, s, ax_new, wp)
+        out["y_new_same"] = torch.equal(wk.y_new, wp.y_new)
+        aty_new = dev.op.rmatvec(y_new)
+    for name, a, b in zip(("dxdx", "xx", "inter", "dydy", "yy"),
+                          wk.sums(), wp.sums()):
+        out[f"{name}_parts_err"] = _rel_err(a, b)
+    # the commit from the kernels' partials on both sides
+    wp.parts.copy_(wk.parts)
+    pending = torch.zeros_like(s.total_steps)
+    (ck, ck_p), (cp, cp_p) = _slot_outputs(s), _slot_outputs(s)
+    ps.commit(s, pending, cfg, ck, ck_p, wk, ax_new, y_new, aty_new)
+    ps.commit_reference(s, pending, cfg, cp, cp_p, wp, ax_new, y_new,
+                        aty_new)
+    out["commit_same"] = torch.equal(ck_p, cp_p) and all(
+        torch.equal(getattr(ck, f), getattr(cp, f))
+        for f in ps.COMMIT_FIELDS if f != "step_size")
+    out["commit_step_size_err"] = _rel_err(ck.step_size, cp.step_size)
+    # the kernels again on the same inputs: the same bits
+    w2 = ps.step_work(dev, s, fused)
+    ps.primal(dev, s, w2)
+    if fused:
+        ps.row_sums(s, ax_new, y_new, w2)
+    else:
+        y_new = ps.dual(dev, s, ax_new, w2)
+    c2, c2_p = _slot_outputs(s)
+    ps.commit(s, pending, cfg, c2, c2_p, w2, ax_new, y_new, aty_new)
+    out["deterministic"] = torch.equal(w2.parts, wk.parts) and \
+        torch.equal(w2.x_new, wk.x_new) and torch.equal(c2_p, ck_p) and \
+        all(torch.equal(getattr(c2, f), getattr(ck, f))
+            for f in ps.COMMIT_FIELDS)
+    # the slot through the kernels and through the plain versions
+    (gk, gk_p), (gp, gp_p) = _slot_outputs(s), _slot_outputs(s)
+    ps.kernel_slot(dev, s, pending, cfg, gk, gk_p, wk)
+    ps.slot_reference(dev, s, pending, cfg, gp, gp_p, wp)
+    if s.x.is_cuda:
+        torch.cuda.synchronize()  # a fault in a kernel shows up here
+    for f in ps.COMMIT_FIELDS:
+        a, b = getattr(gk, f), getattr(gp, f)
+        if a.dtype.is_floating_point:
+            out[f"slot_{f}_err"] = _rel_err(a, b)
+        else:
+            out[f"slot_{f}_same"] = torch.equal(a, b)
+    out["slot_pending_same"] = torch.equal(gk_p, gp_p)
+    out["ok"] = all(v <= tol for k, v in out.items() if k.endswith("_err")) \
+        and all(v for k, v in out.items() if k.endswith("_same")
+                or k == "deterministic")
     return out

@@ -68,7 +68,8 @@ _ATOMIC_ARGS = _PASS_ARGS + [_P, _P]  # aty, stream
 # parts, cb_offsets, cb_rows, counters, n_blocks, aty, stream
 _PARTIALS_ARGS = _PASS_ARGS + [_P, _P, _P, _P, _I, _P, _P]
 CONFIG_ARGS = [_I, _I, _P]  # row_pass_config(W, partials, int info[6])
-# row_pass_launches(partials, reset, unsigned long long* out)
+# row_pass_launches(partials, reset, unsigned long long* out); each
+# source's <source>_launches takes (index, reset, out) likewise
 COUNT_ARGS = [_I, _I, _P]
 _CONFIG_KEYS = ("body", "threads", "registers", "smem_bytes",
                 "local_bytes", "blocks_per_sm")
@@ -78,18 +79,19 @@ _BODIES = ("two-read", "one-pass", "column-split")  # row_pass_config codes
 class Kernel:
     """One entry point of csrc/<source>.cu. `launches` is how many of its
     launches have run on the card: the kernel counts itself on the device
-    as it runs (`g_launches` in the source), so a launch that a CUDA
-    graph recorded counts once at each replay that runs it and not at the
-    capture. Reading or resetting the count waits for every device the
-    wrapper launched on, so neither is done inside a capture."""
+    as it runs (slot `index` of the source's launch counts, which its C
+    function `<source>_launches` reads), so a launch that a CUDA graph recorded
+    counts once at each replay that runs it and not at the capture.
+    Reading or resetting the count waits for every device the wrapper
+    launched on, so neither is done inside a capture."""
 
     def __init__(self, name: str, source: str, argtypes, replaces: str,
-                 partials: bool):
+                 index: int):
         self.name = name
         self.source = source
         self.argtypes = argtypes
         self.replaces = replaces
-        self.partials = int(partials)  # its count's index in g_launches
+        self.index = index
         self._devices = set()  # the CUDA devices it was launched on
         self._fn = None
 
@@ -101,10 +103,10 @@ class Kernel:
             fn.restype = ctypes.c_int
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
-            lib.row_pass_launches.argtypes = COUNT_ARGS
-            lib.row_pass_launches.restype = ctypes.c_int
-            self._err, self._count = lib.cuda_error_string, \
-                lib.row_pass_launches
+            count = getattr(lib, f"{self.source}_launches")
+            count.argtypes = COUNT_ARGS
+            count.restype = ctypes.c_int
+            self._err, self._count = lib.cuda_error_string, count
             self._fn = fn
         return self._fn
 
@@ -123,7 +125,7 @@ class Kernel:
         for d in sorted(self._devices):
             out = ctypes.c_ulonglong()
             with torch.cuda.device(d):
-                self._raise_on(self._count(self.partials, int(reset),
+                self._raise_on(self._count(self.index, int(reset),
                                            ctypes.byref(out)),
                                "reading its launch count")
             n += out.value
@@ -142,10 +144,10 @@ class Kernel:
 # (pdhg_pallas.py:428)
 ROW_PASS_ATOMIC = Kernel(
     "row_pass_atomic", "row_pass", _ATOMIC_ARGS,
-    "cuopt_tpu/lp/pdhg_pallas.py:99", partials=False)
+    "cuopt_tpu/lp/pdhg_pallas.py:99", index=0)
 ROW_PASS_PARTIALS = Kernel(
     "row_pass_partials", "row_pass", _PARTIALS_ARGS,
-    "cuopt_tpu/lp/pdhg_pallas.py:253", partials=True)
+    "cuopt_tpu/lp/pdhg_pallas.py:253", index=1)
 KERNELS = (ROW_PASS_ATOMIC, ROW_PASS_PARTIALS)
 
 
@@ -391,22 +393,21 @@ def row_pass(op, x, ax_old, ax_spill, y, lc0m, uc0m, sigma,
                            mode)
 
 
-def fused_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
-                   mode: str | None = None):
-    """Run the fused Ax -> dual prox -> A^T y pass with spill handling.
+def spilled_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
+                     mode: str | None = None):
+    """The fused Ax -> dual prox -> A^T y pass with spill handling.
 
     Args (float32, on the operator's device): op BlockBandOp, x_new
     (n_cols,), ax_old (n_rows,) full activity at the current iterate, y
     (n_rows,), lc0m/uc0m masked constraint bounds (-/+ sentinel where
     infinite), sigma 0-d. mode: None picks by PARTIALS_MIN_COLS.
 
-    Returns (ax_new, y_new, aty_new, interaction_raw, dy_dot), with
-    interaction_raw = dy.(ax_new - ax_old) (unsigned by the caller).
+    Returns (ax_new, y_new, aty_new).
 
     On the card, two passes over one operator must not run at the same
     time (see `row_pass_kernel`: the partials mode keeps per-operator
     arrival counts)."""
-    n_rows, n_cols = op.n_rows, op.n_cols
+    n_rows = op.n_rows
     spill = op.spill_vals.numel() > 0
     ax_spill = _segment_sum(op.spill_vals * x_new[op.spill_cols],
                             op.spill_rows, n_rows) if spill else None
@@ -417,6 +418,16 @@ def fused_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
         # of the row-side spill: aty[c] += v * y_new[r] per (v, r, c)
         aty_new.index_add_(0, op.spill_cols, op.spill_vals
                            * y_new[op.spill_rows])
+    return ax_new, y_new, aty_new
+
+
+def fused_row_pass(op, x_new, ax_old, y, lc0m, uc0m, sigma,
+                   mode: str | None = None):
+    """`spilled_row_pass` and the step's two dot products over rows:
+    returns (ax_new, y_new, aty_new, interaction_raw, dy_dot), with
+    interaction_raw = dy.(ax_new - ax_old) (unsigned by the caller)."""
+    ax_new, y_new, aty_new = spilled_row_pass(op, x_new, ax_old, y, lc0m,
+                                              uc0m, sigma, mode)
     dy = y_new - y
     interaction = torch.dot(dy, ax_new - ax_old)
     dy_dot = torch.dot(dy, dy)

@@ -15,9 +15,11 @@ device:
     whether it commits, and the host runs slots in rounds and reads one
     step count a round (`PingPongMajor`, the reference's
     ping_pong_graph.cuh). On CUDA tensors with no mesh each slot is a
-    replay of one of two CUDA graphs; on the CPU and on every shard of a
-    mesh it runs eagerly. lp/batch.py runs its own masked loop over the
-    same attempt.
+    replay of one of two CUDA graphs, and runs the step's vector and
+    scalar work in the hand-written kernels of lp/pdhg_step.py
+    (`kernel_slot`) around its products; on the CPU and on every shard
+    of a mesh it runs eagerly as `_slot`. lp/batch.py runs its own masked
+    loop over the same attempt.
   - On a CUDA float32 BlockBandOp every attempt runs the fused row pass
     (lp/pdhg_fused.py, kernels in csrc/row_pass.cu); otherwise the
     unfused matvec -> dual prox -> rmatvec chain.
@@ -56,6 +58,7 @@ from cuopt_torch.lp.hyper_params import (
     RESTART_TRUST_REGION,
 )
 from cuopt_torch.kernels.build import BUILDER
+from cuopt_torch.lp import pdhg_step
 from cuopt_torch.lp.pdhg_fused import (
     ROW_PASS_ATOMIC, fused_pass_supported, fused_row_pass)
 from cuopt_torch.lp.settings import PDLPSolverSettings
@@ -767,6 +770,17 @@ def _slot(dev: DeviceProblem, s: SolverState, pending, cfg: StaticCfg,
                 out=out_pending)
 
 
+def _solo_on_card(dev, s) -> bool:
+    """Whether `s` is on a card and the problem is neither split over a
+    mesh nor a shard with a comm: the slots are then CUDA-graph replays
+    (`PingPongMajor._graphed`) and run the hand-written step kernels
+    (`pdhg_step.kernel_slot`), in the replays and in the eager slots
+    alike. A shard's collectives wait on other shards' threads, so a mesh
+    runs `_slot` eagerly."""
+    return not isinstance(dev, ShardedProblem) and s.x.is_cuda and \
+        getattr(dev.op, "comm", None) is None
+
+
 # each thread's graph-capture stream, by device. A stream that runs a
 # cuBLAS call is given a cuBLAS workspace that the process keeps (32 MiB
 # on an H100), so a new stream each solve would keep 32 MiB more a solve
@@ -794,20 +808,30 @@ class PingPongMajor:
     the count (one int64) and goes on until it is the quota. With a few
     percent of attempts rejected, a major reads two or three counts.
 
-    On CUDA tensors and an operator with no comm (a solo solve on a card)
-    each slot is a replay of one of two CUDA graphs. They are captured at
-    the first major, on the thread's capture stream in thread-local mode
-    (the MIP's FJ thread replays its own graphs meanwhile). The major's
-    first slot runs eagerly on that stream before the capture: it loads
-    the row-pass library, its plan and cuBLAS there, and, a slot being a
-    pure function of its input buffer, it gives what a replay of graph 0
-    would. The row-pass kernels count their own launches on the device
-    (`Kernel.launches`), so the eager slot and each replay count one and
-    the capture none: one an attempt. The replays and the eager tail,
-    which runs no row pass, go on one stream, so no replayed partials
-    pass overlaps an eager one on the operator (`RowPassPlan.counters`).
-    Everywhere else (CPU tensors, a shard of a mesh) each slot runs
-    eagerly, in the same rounds, buffers and reads.
+    On CUDA tensors and an operator with no comm (a solo solve on a card,
+    `_solo_on_card`) each slot is a replay of one of two CUDA graphs. They
+    are captured at the first major, on the thread's capture stream in
+    thread-local mode (the MIP's FJ thread replays its own graphs
+    meanwhile). The major's first slot runs eagerly on that stream before
+    the capture: it loads the kernel libraries, the row pass's plan and
+    cuBLAS there, and, a slot being a pure function of its input buffer,
+    it gives what a replay of graph 0 would. On the card, eager or
+    replayed, a slot is `pdhg_step.kernel_slot`: hand-written kernels
+    around the products. On the fused float32 block band it launches
+    pdhg_primal, the row pass (and the spill's few torch ops where the
+    band spills), pdhg_row_sums and pdhg_commit; on the unfused path
+    pdhg_primal, the operator's matvec, pdhg_dual, its rmatvec and
+    pdhg_commit. Their sums are taken in one fixed order, so the eager
+    slot and the replays give the same bits. Every kernel
+    counts its own launches on the device (`Kernel.launches`), so the
+    eager slot and each replay count one and the capture none: one an
+    attempt. `kernel_slots` counts the slots run that way (the raw
+    result's `step_kernel_slots`): all of them on a card, none elsewhere.
+    The replays and the eager tail, which runs no row pass, go on one
+    stream, so no replayed partials pass overlaps an eager one on the
+    operator (`RowPassPlan.counters`). Everywhere else (CPU tensors, a
+    shard of a mesh) each slot runs `_slot` eagerly, in the same rounds,
+    buffers and reads.
 
     Given a ShardedProblem and its ShardedState (parallel/sharding.py) it
     runs the major on every shard under run_spmd (`sharded_major`), each
@@ -822,7 +846,8 @@ class PingPongMajor:
     which the next major of the same problem overwrites: keep one across
     it only as a copy. Later majors run on the stream the capture's call
     ran on. `slots` and `count_reads` count the slots run and the counts
-    read (on a mesh, the first shard's)."""
+    read (on a mesh, the first shard's), `kernel_slots` those of the
+    slots that ran the step kernels."""
 
     def __init__(self, cfg: StaticCfg):
         self.cfg = cfg
@@ -830,7 +855,9 @@ class PingPongMajor:
         self.bufs = None  # two SolverStates sharing their non-slot fields
         self.pending = None  # each buffer's 0-d int64 attempt index
         self.graphs = None
+        self.work = None  # the step kernels' scratch, on a card
         self.slots = 0
+        self.kernel_slots = 0
         self.count_reads = 0
 
     def __call__(self, dev, s):
@@ -848,6 +875,7 @@ class PingPongMajor:
             else:
                 self._load(s)
             start = self.bufs[0].total_steps.clone()
+            slots0 = self.slots
             cur, ahead = 0, 0  # ahead: slots run since the last count
             if self.graphs is None and self._graphed(dev, s):
                 with trace_scope("pdlp_graph_capture"):
@@ -866,6 +894,8 @@ class PingPongMajor:
                 if done == quota:
                     break
                 ahead = 0
+            if self.work is not None:
+                self.kernel_slots += self.slots - slots0
             debug_assert(self.bufs[cur].step_size > 0.0,
                          "PDHG step size must stay positive")
         return self.bufs[cur]
@@ -877,14 +907,14 @@ class PingPongMajor:
         out = lane(dev, s)
         if dev.op.comm.rank == 0:
             self.slots += lane.slots
+            self.kernel_slots += lane.kernel_slots
             self.count_reads += lane.count_reads
         return out
 
     @staticmethod
     def _graphed(dev, s) -> bool:
-        """Whether the slots are CUDA-graph replays: CUDA tensors, and no
-        comm, whose collectives wait on other shards' threads."""
-        return s.x.is_cuda and getattr(dev.op, "comm", None) is None
+        """Whether the slots are CUDA-graph replays (`_solo_on_card`)."""
+        return _solo_on_card(dev, s)
 
     def _allocate(self, dev, s):
         self.dev, self.graphs = dev, None
@@ -893,6 +923,9 @@ class PingPongMajor:
         b1 = b0.replace(**{f: torch.empty_like(getattr(b0, f))
                            for f in _SLOT_FIELDS})
         self.bufs = (b0, b1)
+        self.work = pdhg_step.step_work(
+            dev, s, _use_fused(dev, s.x.dtype, self.cfg)) \
+            if _solo_on_card(dev, s) else None
         self.pending = tuple(torch.zeros((), dtype=torch.int64,
                                          device=s.x.device)
                              for _ in (0, 1))
@@ -906,8 +939,12 @@ class PingPongMajor:
         self.pending[0].zero_()
 
     def _run_slot(self, k):
-        _slot(self.dev, self.bufs[k], self.pending[k], self.cfg,
-              self.bufs[1 - k], self.pending[1 - k])
+        args = (self.dev, self.bufs[k], self.pending[k], self.cfg,
+                self.bufs[1 - k], self.pending[1 - k])
+        if self.work is None:
+            _slot(*args)
+        else:
+            pdhg_step.kernel_slot(*args, self.work)
 
     def _replay(self, k):
         if self.graphs is None:
@@ -1274,11 +1311,6 @@ class PdlpSolver:
             dev = build_device_problem(prob, self.hp, self.dtype,
                                        settings.operator_kind, self.device)
         build_s = time.perf_counter() - t_run0
-        if stop is not None and self.device.type == "cuda" and \
-                _use_fused(dev, self.dtype, self.cfg):
-            BUILDER.library(ROW_PASS_ATOMIC.source)  # nvcc on a cold start
-            if stop():
-                return _stopped()
         if settings.warm_start_data is not None:
             from cuopt_torch.lp.warm_start import restore_state
 
@@ -1290,6 +1322,14 @@ class PdlpSolver:
         run_dev = dev
         if self.mesh is not None:
             run_dev, state = shard_problem_and_state(dev, state, self.mesh)
+        if stop is not None and self.device.type == "cuda":
+            # nvcc on a cold start
+            if _use_fused(dev, self.dtype, self.cfg):
+                BUILDER.library(ROW_PASS_ATOMIC.source)
+            if _solo_on_card(run_dev, state):
+                BUILDER.library(pdhg_step.PDHG_COMMIT.source)
+            if stop():
+                return _stopped()
         major_fn = make_major_fn(self.cfg)
         status = C.CUOPT_TERIMINATION_STATUS_NO_TERMINATION
         report = None
@@ -1422,6 +1462,8 @@ class PdlpSolver:
                 # the step driver's slots (one an attempt) and count reads
                 "graph_slots": major_fn.slots,
                 "graph_count_reads": major_fn.count_reads,
+                # of those slots, the ones run by the step kernels
+                "step_kernel_slots": major_fn.kernel_slots,
             }
             if settings.save_best_primal_so_far and best_primal is not None \
                     and best_primal[0] < sol["primal_objective"]:

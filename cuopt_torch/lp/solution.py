@@ -9,10 +9,11 @@ split (compile_s: the device problem's build plus the first major;
 build_s: the build alone, inside compile_s; solve_loop_s, loop_steps,
 loop_attempts: the majors after the first; graph_slots,
 graph_count_reads: the PDHG step driver's slots, one an attempt, and
-its step-count reads; restarts: the majors whose tail restarted the
-iterates), a crossover's
-pivots, the concurrent race's record ("race") and, when the PDLP leg of a
-race failed, its error ("pdlp_error"). A MIP solve adds its node count,
+its step-count reads; step_kernel_slots: those of the slots that ran
+the hand-written step kernels, every one on a card; restarts: the majors
+whose tail restarted the iterates), a crossover's pivots, the
+concurrent race's record ("race") and, when the PDLP leg of a race
+failed, its error ("pdlp_error"). A MIP solve adds its node count,
 gap and bound, the errors its heuristics caught ("heuristic_errors"), the
 engine of each LP of its tree ("mip_stats") and its FJ climbers' device,
 chunks stepped, batch and scoring block ("fj").
@@ -87,8 +88,8 @@ class Solution:
             "iterations", "attempts", "restarts", "solve_time", "solved_by",
             "compile_s", "build_s", "solve_loop_s", "loop_steps",
             "loop_attempts", "graph_slots", "graph_count_reads",
-            "crossover_iterations", "crossover_status", "race",
-            "pdlp_error",
+            "step_kernel_slots", "crossover_iterations", "crossover_status",
+            "race", "pdlp_error",
             "nodes", "mip_gap", "solution_bound", "heuristic_errors",
             "mip_stats", "fj",
         )

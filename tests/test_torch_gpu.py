@@ -21,8 +21,10 @@ import torch
 
 import cuopt_torch.dual_simplex.concurrent as concurrent
 from cuopt_torch import constants as C
-from cuopt_torch.kernels.checks import check_row_pass, row_pass_inputs
+from cuopt_torch.kernels.checks import (check_row_pass, check_step_kernels,
+                                        row_pass_inputs)
 from cuopt_torch.lp import pdhg_fused as pf
+from cuopt_torch.lp import pdhg_step as ps
 from cuopt_torch.lp import pdlp as TP
 from cuopt_torch.lp.settings import PDLPSolverSettings
 from cuopt_torch.lp.solve import solve_lp
@@ -183,6 +185,7 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     s.dtype = "float32"
     s.method = C.CUOPT_METHOD_PDLP  # the default races a host simplex
     pf.reset_counts()
+    ps.reset_counts()
     sol = solve_lp(prob, s, device=cuda)
     info = sol.get_additional_termination_information()
     assert sol.get_termination_reason() == "Optimal"
@@ -191,12 +194,71 @@ def test_f32_solve_runs_every_attempt_through_the_kernel(cuda):
     # every attempt a slot of the graph driver, a few count reads a major
     assert info["graph_slots"] == info["attempts"]
     assert 0 < info["graph_count_reads"] < info["attempts"]
+    # every slot through the step kernels, the fused path's three
+    assert info["step_kernel_slots"] == info["graph_slots"]
+    assert [k.launches for k in ps.KERNELS] == [
+        info["attempts"], 0, info["attempts"], info["attempts"]]
     ref = PDLPSolverSettings()
     ref.log_to_console = False
     ref.method = C.CUOPT_METHOD_PDLP
     want = solve_lp(prob, ref, device="cpu").get_primal_objective()
     got = sol.get_primal_objective()
     assert abs(got - want) <= 1e-3 * (1 + abs(want)), (got, want)
+
+
+def test_f64_solve_runs_every_slot_through_the_step_kernels(cuda):
+    """A float64 solve (the surfaces' default) on the unfused pair: every
+    slot runs pdhg_primal, pdhg_dual and pdhg_commit, and no row pass."""
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    pf.reset_counts()
+    ps.reset_counts()
+    sol = solve_lp(prob, _f32_pdlp_settings(dtype="float64"), device=cuda)
+    info = sol.get_additional_termination_information()
+    assert sol.get_termination_reason() == "Optimal"
+    assert info["step_kernel_slots"] == info["graph_slots"] == \
+        info["attempts"] > 0
+    assert [k.launches for k in ps.KERNELS] == [
+        info["attempts"], info["attempts"], 0, info["attempts"]]
+    assert all(k.launches == 0 for k in pf.KERNELS)
+
+
+@pytest.mark.parametrize("dtype, kind, fused_kernel, n", [
+    (torch.float32, "blockband", "auto", 3000),
+    (torch.float32, "blockband", "off", 3000),
+    (torch.float64, "blockband", "auto", 3000),
+    (torch.float64, "csr", "auto", 3000),
+    # past MAX_PARTS * CHUNK columns: 256 partial sums a vector
+    (torch.float32, "blockband", "auto", 270_000)])
+def test_step_kernels_match_their_plain_versions(cuda, dtype, kind,
+                                                 fused_kernel, n):
+    """Each step kernel against its plain version on the state after a
+    major, and the slot through them against the plain slot
+    (`kernels/checks.py check_step_kernels`)."""
+    prob = generate_lp(n, n, 6, seed=11, band=96)
+    solver = TP.PdlpSolver(prob, _f32_pdlp_settings(), device=cuda)
+    cfg = dataclasses.replace(solver.cfg, fused_kernel=fused_kernel)
+    dev = TP.build_device_problem(prob, solver.hp, dtype, kind, cuda)
+    fused = TP._use_fused(dev, dtype, cfg)
+    assert fused == (dtype == torch.float32 and fused_kernel == "auto")
+    s, _ = TP.make_major_fn(cfg)(dev, TP.initial_state(dev, solver.hp,
+                                                       dtype))
+    if n > ps.MAX_PARTS * ps.CHUNK:
+        assert ps.step_work(dev, s, fused).bx == ps.MAX_PARTS
+    result = check_step_kernels(dev, s, cfg, fused)
+    assert result["ok"], result
+
+
+def test_step_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    prob = generate_lp(3000, 3000, 6, seed=11, band=96)
+    solver = TP.PdlpSolver(prob, _f32_pdlp_settings(), device=cuda)
+    dev = TP.build_device_problem(prob, solver.hp, torch.float32,
+                                  "blockband", cuda)
+    s = TP.initial_state(dev, solver.hp, torch.float32)
+    work = ps.step_work(dev, s, False)
+    with pytest.raises(ValueError, match="aty must be"):
+        ps.primal(dev, s.replace(aty=s.aty.double()), work)
+    with pytest.raises(ValueError, match="y_new must be"):
+        ps.row_sums(s, s.ax, s.y[:-1], work)
 
 
 def _eager_driver(cfg):
@@ -223,6 +285,7 @@ def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
     prob = generate_lp(3000, 3000, 6, seed=11, band=96)
     solver = TP.PdlpSolver(prob, _f32_pdlp_settings(), device=cuda)
     dev = TP.build_device_problem(prob, solver.hp, dtype, kind, cuda)
+    # both drivers run the step kernels, the eager one outside any graph
     assert type(dev.op).__name__ == \
         ("CsrOp" if kind == "csr" else "BlockBandOp")
     fused = TP._use_fused(dev, dtype, solver.cfg)
@@ -235,16 +298,22 @@ def test_graph_driver_equals_eager_majors_on_the_card(cuda, monkeypatch,
         for k in range(3):
             eager_s, _ = eager(dev, eager_s)
             pf.reset_counts()
+            ps.reset_counts()
             graph_s, _ = driver(dev, graph_s)
             launches = pf.ROW_PASS_PARTIALS.launches
+            step_launches = [k.launches for k in ps.KERNELS]
             for f in dataclasses.fields(TP.SolverState):
                 assert torch.equal(getattr(eager_s, f.name),
                                    getattr(graph_s, f.name)), (k, f.name)
             if k == 0:
                 attempts0 = int(graph_s.total_attempts)
                 assert launches == (attempts0 if fused else 0)
+                assert step_launches == [
+                    attempts0, 0 if fused else attempts0,
+                    attempts0 if fused else 0, attempts0]
         assert eager.graphs is None and driver.graphs is not None
         assert driver.slots == eager.slots == int(graph_s.total_attempts)
+        assert driver.kernel_slots == eager.kernel_slots == driver.slots
         assert driver.count_reads == eager.count_reads
         assert int(graph_s.total_attempts) > int(graph_s.total_steps)
         if fused:  # the partials kernel left its arrival counts at 0
@@ -861,9 +930,14 @@ def test_four_shards_on_one_card_match_the_unsharded_major(cuda, n):
         dev, st0, make_mesh(devices=[cuda] * 4))
     assert (sdev.shards[0].op.halo_meta is not None) == (n == 2048)
     pf.reset_counts()
+    ps.reset_counts()
+    kernel_slots = fn.kernel_slots
     sst, _ = fn(sdev, sst)
     sst, _ = fn(sdev, sst)
     assert all(k.launches == 0 for k in pf.KERNELS)
+    # the shards run the torch slot, whose sums go through the collectives
+    assert all(k.launches == 0 for k in ps.KERNELS)
+    assert fn.kernel_slots == kernel_slots > 0
     g = gather_state(sst)
     assert int(g.total_steps) == int(s1.total_steps)
     for a, b in ((g.x, s1.x), (g.y, s1.y)):

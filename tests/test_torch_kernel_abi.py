@@ -1,10 +1,11 @@
 """The ctypes declarations of cuopt_torch's kernels against their C source.
 
-The wrappers in cuopt_torch/lp/pdhg_fused.py call the `extern "C"` entry
-points of cuopt_torch/csrc/row_pass.cu through ctypes, which trusts the
-declared argument types: a pointer declared as an int is cut to 32 bits
-without a word. These tests parse the C prototypes and hold every
-declaration against them, on the CPU (nothing is compiled).
+The wrappers in cuopt_torch/lp/pdhg_fused.py and lp/pdhg_step.py call the
+`extern "C"` entry points of cuopt_torch/csrc/row_pass.cu and
+csrc/pdhg_step.cu through ctypes, which trusts the declared argument
+types: a pointer declared as an int is cut to 32 bits without a word.
+These tests parse the C prototypes and hold every declaration against
+them, on the CPU (nothing is compiled).
 """
 
 import ctypes
@@ -15,10 +16,13 @@ import pytest
 import torch
 
 from cuopt_torch.lp import pdhg_fused as pf
+from cuopt_torch.lp import pdhg_step as ps
 
 torch.set_num_threads(1)
 
-SOURCE = Path(pf.__file__).resolve().parent.parent / "csrc" / "row_pass.cu"
+CSRC = Path(pf.__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "row_pass.cu"
+STEP_SOURCE = CSRC / "pdhg_step.cu"
 
 
 def _prototypes(source: Path = SOURCE) -> dict:
@@ -46,6 +50,8 @@ def _ctype_of(c_type: str):
         return ctypes.c_void_p
     if c_type == "int":
         return ctypes.c_int
+    if c_type == "double":
+        return ctypes.c_double
     raise AssertionError(f"no ctypes rule for C type {c_type!r}")
 
 
@@ -55,10 +61,17 @@ def test_every_entry_point_is_declared():
     assert set(_prototypes()) == declared
 
 
-@pytest.mark.parametrize("kernel", pf.KERNELS, ids=lambda k: k.name)
+def test_every_step_entry_point_is_declared():
+    declared = {k.name for k in ps.KERNELS} | {
+        "pdhg_step_launches", "cuda_error_string"}
+    assert set(_prototypes(STEP_SOURCE)) == declared
+
+
+@pytest.mark.parametrize("kernel", pf.KERNELS + ps.KERNELS,
+                         ids=lambda k: k.name)
 def test_kernel_argtypes_match_the_prototype(kernel):
-    assert kernel.source == "row_pass"
-    ret, params = _prototypes()[kernel.name]
+    assert kernel.source in ("row_pass", "pdhg_step")
+    ret, params = _prototypes(CSRC / f"{kernel.source}.cu")[kernel.name]
     assert ret == "int"  # the cudaError_t of the launch
     assert len(kernel.argtypes) == len(params)
     for i, (declared, c_type) in enumerate(zip(kernel.argtypes, params)):
@@ -79,13 +92,29 @@ def test_count_argtypes_match_the_prototype():
     assert [_ctype_of(c) for c in params] == pf.COUNT_ARGS
     assert params[-1] == "unsigned long long*"  # ctypes.c_ulonglong
     # each kernel reads its own count, the partials mode's at index 1
-    assert [k.partials for k in pf.KERNELS] == [0, 1]
+    assert [k.index for k in pf.KERNELS] == [0, 1]
+    # Kernel reads its count through <source>_launches
+    assert {k.source for k in pf.KERNELS} == {"row_pass"}
+
+
+def test_step_count_argtypes_match_the_prototype():
+    """The step kernels' counts, in the order of the source's enum."""
+    ret, params = _prototypes(STEP_SOURCE)["pdhg_step_launches"]
+    assert ret == "int"
+    assert [_ctype_of(c) for c in params] == pf.COUNT_ARGS
+    assert {k.source for k in ps.KERNELS} == {"pdhg_step"}
+    assert [k.index for k in ps.KERNELS] == [0, 1, 2, 3]
+    assert "enum Which { PRIMAL = 0, DUAL = 1, ROW_SUMS = 2, COMMIT = 3, " \
+        "N_KERNELS = 4 };" in STEP_SOURCE.read_text()
+    assert [k.name for k in ps.KERNELS] == [
+        "pdhg_primal", "pdhg_dual", "pdhg_row_sums", "pdhg_commit"]
 
 
 def test_error_string_exists():
-    ret, params = _prototypes()["cuda_error_string"]
-    assert ret == "const char*"
-    assert params == ["int"]
+    for source in (SOURCE, STEP_SOURCE):
+        ret, params = _prototypes(source)["cuda_error_string"]
+        assert ret == "const char*", source
+        assert params == ["int"], source
 
 
 def test_one_pass_width_matches_the_source():
