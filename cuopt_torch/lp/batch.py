@@ -17,6 +17,17 @@ members that have accepted keep their values. That is one host sync per
 pass for the whole batch, as the solo loop has one per attempt, and each
 member follows the trajectory it would follow alone.
 
+The batch runs no CUDA graph and no step kernel: every pass is eager.
+Its spans (utils/tracing.py) are `pdlp_batch_build` (the members'
+builds, initial states and the stack), `pdlp_batch_steps` (a major's
+passes), `pdlp_batch_sync` (a pass's read), `pdlp_batch_tail` (the
+vmapped major tail) and `pdlp_batch_readback` (a major's packed read
+and the answers of the members it ends). Every member's raw result
+carries the batch's counters, the same for all its members:
+`batch_size`, `batch_passes` (attempt passes), `batch_syncs` (the
+passes' reads and the majors' packed reads), `batch_steps` (the stacked
+loop's steps) and the walls `batch_build_s` and `batch_loop_s`.
+
 The stacked operator is dense `(B, n, m)` (batched matmuls), block-band
 slabs `(B, T, 128, W)` with shared window starts when every member has
 one sparsity pattern (the B&B node-relaxation case), or ELL padded to a
@@ -38,6 +49,7 @@ loop ends where the whole batch's would have ended for its members.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -59,6 +71,7 @@ from cuopt_torch.lp.solve import solve_lp
 from cuopt_torch.parallel.sharding import run_spmd
 from cuopt_torch.sparse.ops import EllOp
 from cuopt_torch.utils.timer import Timer
+from cuopt_torch.utils.tracing import trace_scope
 
 # size threshold below which the stacked operator is simply DENSE;
 # larger same-shape members batch via stacked BlockBand (identical
@@ -177,15 +190,18 @@ def _batched_fns(cfg, dev_tpl, st_tpl):
 
 
 def _batched_step(fns, dev_b, st_b, max_attempts):
-    """One PDHG step of every member: the masked attempt loop."""
+    """One PDHG step of every member: the masked attempt loop. Returns
+    (stacked state, attempt passes)."""
     attempt, accept, _ = fns
     grad = dev_b["c"] - st_b["aty"]
     eta = st_b["step_size"]
     attempts = torch.zeros_like(st_b["total_steps"])
     done = torch.zeros_like(attempts, dtype=torch.bool)
     acc = None
+    passes = 0
     while True:
         cand, valid, eta_next = attempt(dev_b, st_b, grad, eta, attempts)
+        passes += 1
         attempts = attempts + (~done).to(attempts.dtype)
         take = ~done & (valid | (attempts >= max_attempts))
         if acc is None:
@@ -196,17 +212,26 @@ def _batched_step(fns, dev_b, st_b, max_attempts):
             acc_next = torch.where(take, eta_next, acc_next)
         done = done | take
         # one device sync per pass, for the whole batch
-        if bool(done.all()):
+        with trace_scope("pdlp_batch_sync"):
+            all_done = bool(done.all())
+        if all_done:
             break
         eta = torch.where(done, eta, eta_next)
-    return accept(st_b, acc, acc_eta, acc_next, attempts)
+    return accept(st_b, acc, acc_eta, acc_next, attempts), passes
 
 
 def _batched_major(fns, dev_b, st_b, cfg):
-    """One major iteration of every member: (stacked state, report)."""
-    for _ in range(cfg.hp.major_iteration):
-        st_b = _batched_step(fns, dev_b, st_b, cfg.max_step_attempts)
-    return fns[2](dev_b, st_b)
+    """One major iteration of every member: (stacked state, report); the
+    report's "passes" is the major's attempt passes, a host int."""
+    passes = 0
+    with trace_scope("pdlp_batch_steps"):
+        for _ in range(cfg.hp.major_iteration):
+            st_b, n = _batched_step(fns, dev_b, st_b, cfg.max_step_attempts)
+            passes += n
+    with trace_scope("pdlp_batch_tail"):
+        st_b, report = fns[2](dev_b, st_b)
+    report["passes"] = passes
+    return st_b, report
 
 
 def _solve_stacked(probs, settings, kind, device):
@@ -217,11 +242,15 @@ def _solve_stacked(probs, settings, kind, device):
     cfg = dataclasses.replace(solver0.cfg, fused_kernel="off")
     timer = Timer(settings.time_limit)
 
-    devs = [build_device_problem(p, hp, dtype, kind, device) for p in probs]
-    states = [initial_state(d, hp, dtype) for d in devs]
-    if kind == "ell":
-        devs = _normalize_ell_widths(devs)
-    dev_b, st_b = _stack(devs), _stack(states)
+    t_build = time.perf_counter()
+    with trace_scope("pdlp_batch_build"):
+        devs = [build_device_problem(p, hp, dtype, kind, device)
+                for p in probs]
+        states = [initial_state(d, hp, dtype) for d in devs]
+        if kind == "ell":
+            devs = _normalize_ell_widths(devs)
+        dev_b, st_b = _stack(devs), _stack(states)
+    build_s = time.perf_counter() - t_build
     fns = _batched_fns(cfg, devs[0], states[0])
 
     needed_streak = 1 if settings.strict_infeasibility else 2
@@ -229,40 +258,55 @@ def _solve_stacked(probs, settings, kind, device):
     snapshots: list[dict | None] = [None] * B
     inf_streak = np.zeros(B, int)
     unb_streak = np.zeros(B, int)
+    passes = majors = 0
+    t_loop = time.perf_counter()
     while True:
         st_b, report = _batched_major(fns, dev_b, st_b, cfg)
-        packed = _np(torch.stack([report[k].to(torch.float64)
-                                  for k in _SCALAR_KEYS]))
-        opt_cur, opt_avg, numerical = (packed[i] > 0 for i in range(3))
-        steps = packed[3].astype(np.int64)
-        it = int(steps.max())
-        if settings.detect_infeasibility:
-            inf_streak = np.where(packed[4] > 0, inf_streak + 1, 0)
-            unb_streak = np.where(packed[5] > 0, unb_streak + 1, 0)
-        newly = ~done & (opt_cur | opt_avg | numerical
-                         | (inf_streak >= needed_streak)
-                         | (unb_streak >= needed_streak))
-        hit_limits = it >= settings.iteration_limit or timer.expired()
-        for b in np.flatnonzero(newly | (~done if hit_limits else False)):
-            if numerical[b]:
-                st = C.CUOPT_TERIMINATION_STATUS_NUMERICAL_ERROR
-            elif opt_cur[b] or opt_avg[b]:
-                st = C.CUOPT_TERIMINATION_STATUS_OPTIMAL
-            elif inf_streak[b] >= needed_streak:
-                st = C.CUOPT_TERIMINATION_STATUS_INFEASIBLE
-            elif unb_streak[b] >= needed_streak:
-                st = C.CUOPT_TERIMINATION_STATUS_UNBOUNDED
-            elif it >= settings.iteration_limit:
-                st = C.CUOPT_TERIMINATION_STATUS_ITERATION_LIMIT
-            else:
-                st = C.CUOPT_TERIMINATION_STATUS_TIME_LIMIT
-            use_avg = bool(opt_avg[b]) and not bool(opt_cur[b])
-            snapshots[b] = _extract_one(report, b, use_avg, st, timer)
-            done[b] = True
+        passes += report["passes"]
+        majors += 1
+        with trace_scope("pdlp_batch_readback"):
+            packed = _np(torch.stack([report[k].to(torch.float64)
+                                      for k in _SCALAR_KEYS]))
+            opt_cur, opt_avg, numerical = (packed[i] > 0 for i in range(3))
+            steps = packed[3].astype(np.int64)
+            it = int(steps.max())
+            if settings.detect_infeasibility:
+                inf_streak = np.where(packed[4] > 0, inf_streak + 1, 0)
+                unb_streak = np.where(packed[5] > 0, unb_streak + 1, 0)
+            newly = ~done & (opt_cur | opt_avg | numerical
+                             | (inf_streak >= needed_streak)
+                             | (unb_streak >= needed_streak))
+            hit_limits = it >= settings.iteration_limit or timer.expired()
+            for b in np.flatnonzero(newly | (~done if hit_limits
+                                             else False)):
+                if numerical[b]:
+                    st = C.CUOPT_TERIMINATION_STATUS_NUMERICAL_ERROR
+                elif opt_cur[b] or opt_avg[b]:
+                    st = C.CUOPT_TERIMINATION_STATUS_OPTIMAL
+                elif inf_streak[b] >= needed_streak:
+                    st = C.CUOPT_TERIMINATION_STATUS_INFEASIBLE
+                elif unb_streak[b] >= needed_streak:
+                    st = C.CUOPT_TERIMINATION_STATUS_UNBOUNDED
+                elif it >= settings.iteration_limit:
+                    st = C.CUOPT_TERIMINATION_STATUS_ITERATION_LIMIT
+                else:
+                    st = C.CUOPT_TERIMINATION_STATUS_TIME_LIMIT
+                use_avg = bool(opt_avg[b]) and not bool(opt_cur[b])
+                snapshots[b] = _extract_one(report, b, use_avg, st, timer)
+                done[b] = True
         if done.all():
             break
+    # the same for every member: the batch's own counters and walls
+    counters = {
+        "batch_size": B, "batch_passes": passes,
+        # one read a pass, one packed read a major
+        "batch_syncs": passes + majors, "batch_steps": it,
+        "batch_build_s": build_s,
+        "batch_loop_s": time.perf_counter() - t_loop,
+    }
     out = []
     for p, raw in zip(probs, snapshots):
+        raw.update(counters)
         if p.maximize:  # undo the internal minimize transform
             raw["primal_objective"] = -raw["primal_objective"]
             raw["dual_objective"] = -raw["dual_objective"]

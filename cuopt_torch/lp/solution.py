@@ -13,10 +13,15 @@ its step-count reads; step_kernel_slots: those of the slots that ran
 the hand-written step kernels, every one on a card; restarts: the majors
 whose tail restarted the iterates), a crossover's pivots, the
 concurrent race's record ("race") and, when the PDLP leg of a race
-failed, its error ("pdlp_error"). A MIP solve adds its node count,
-gap and bound, the errors its heuristics caught ("heuristic_errors"), the
-engine of each LP of its tree ("mip_stats") and its FJ climbers' device,
-chunks stepped, batch and scoring block ("fj").
+failed, its error ("pdlp_error"). A member of a batch_solve batch
+(solved_by "pdlp_batch") adds the batch's counters, the same in every
+member: batch_size, batch_passes (attempt passes), batch_syncs (a read
+a pass and a packed read a major), batch_steps (the stacked loop's
+steps), and the walls batch_build_s and batch_loop_s. A MIP solve
+adds its node count, gap and bound, the errors its heuristics caught
+("heuristic_errors"), the engine of each LP of its tree ("mip_stats")
+and its FJ climbers' device, chunks stepped, batch and scoring block
+("fj").
 """
 
 from __future__ import annotations

@@ -47,6 +47,25 @@ Here:
     pdlp_step_sync for the replays, pdlp_termination and pdlp_restart
     for each major's eager tail. The raw result counts the majors that
     restarted (`restarts`, read in pdlp_major_readback).
+  - The batch LP's spans (lp/batch.py, `batch_solve` of same-shape
+    members stacked on a leading axis). The batch runs no CUDA graph
+    and no step kernel: each attempt pass is eager, the vmapped
+    `_attempt` over the stacked operator, so the host launches every
+    product and vector op of every pass.
+      pdlp_batch_build       the members' build_device_problem (each
+                             with its pdlp_scaling, device_upload and
+                             sparse_band_layout spans), their initial
+                             states, the ELL widths and the stack
+      pdlp_batch_steps       a batched major's steps: its passes
+      pdlp_batch_sync        a pass's one read, whether every member
+                             has accepted its step
+      pdlp_batch_tail        the vmapped major tail (its
+                             pdlp_termination and pdlp_restart inside)
+      pdlp_batch_readback    a major's one packed read of the members'
+                             scalars and the answers of the members it
+                             ends
+    Every member's raw result counts the batch's passes, syncs and
+    steps and times its build and major loop (`batch_*`).
   - CUOPT_PROFILE_DIR=<dir>: when set, the first solve starts a
     torch.profiler trace and atexit writes it as a Chrome trace into
     <dir>.
